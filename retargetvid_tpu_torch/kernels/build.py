@@ -1,0 +1,106 @@
+"""Build the CUDA kernels in ``csrc/`` and load them with ctypes.
+
+Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+         -Xcompiler -fPIC -o build/kernels/<name>-<hash>.so csrc/<name>.cu
+
+The library lands in ``build/kernels/`` at the repository root (ignored by
+git), named by a hash of its source and flags, so an edited source builds
+anew.  Building happens at first use; ``build_all`` starts one ``nvcc`` per
+source at once.  A missing ``nvcc`` or a failed build raises: nothing falls
+back to the plain PyTorch versions.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+__all__ = ["KERNEL_SOURCES", "BUILD_DIR", "build_all", "load_library",
+           "check_launch"]
+
+CSRC_DIR = Path(__file__).resolve().parent.parent / 'csrc'
+BUILD_DIR = Path(__file__).resolve().parent.parent.parent / 'build' / 'kernels'
+NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
+              '-O3', '-shared', '-Xcompiler', '-fPIC')
+#: Every kernel source of the port, by library name.
+KERNEL_SOURCES = {'saliency_postprocess': 'saliency_postprocess.cu'}
+
+_LOADED: dict = {}
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get('CUDA_HOME', '/usr/local/cuda')
+    for cand in (shutil.which('nvcc'), os.path.join(cuda_home, 'bin', 'nvcc')):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError('nvcc not found (PATH, $CUDA_HOME/bin); the CUDA '
+                       'kernels are built from source at first use')
+
+
+def _lib_path(name: str) -> Path:
+    src = CSRC_DIR / KERNEL_SOURCES[name]
+    digest = hashlib.sha256(src.read_bytes() + ' '.join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f'{name}-{digest.hexdigest()[:16]}.so'
+
+
+def _start_build(name: str):
+    """Start ``nvcc`` for one kernel; returns (process, tmp, target) or None
+    if the library is already built."""
+    target = _lib_path(name)
+    if target.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix='.so', dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, '-o', tmp,
+           str(CSRC_DIR / KERNEL_SOURCES[name])]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, target
+
+
+def _finish_build(name: str, started) -> None:
+    if started is None:
+        return
+    proc, tmp, target = started
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f'nvcc failed for {name} (rc {proc.returncode}):'
+                           f'\n{log}')
+    os.replace(tmp, target)          # atomic: concurrent builders agree
+
+
+def build_all(names=None) -> None:
+    """Build every kernel (or ``names``), one ``nvcc`` per source, all
+    started together."""
+    names = list(KERNEL_SOURCES if names is None else names)
+    started = [(n, _start_build(n)) for n in names]
+    for n, s in started:
+        _finish_build(n, s)
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """The kernel's shared library, built first if needed."""
+    lib = _LOADED.get(name)
+    if lib is None:
+        build_all([name])
+        lib = ctypes.CDLL(str(_lib_path(name)))
+        lib.rtv_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.rtv_cuda_error_string.restype = ctypes.c_char_p
+        _LOADED[name] = lib
+    return lib
+
+
+def check_launch(lib: ctypes.CDLL, name: str, rc: int) -> None:
+    """Raise if a launch returned a CUDA error."""
+    if rc != 0:
+        msg = lib.rtv_cuda_error_string(rc).decode()
+        raise RuntimeError(f'{name} launch failed: CUDA error {rc} ({msg})')

@@ -1,0 +1,214 @@
+"""UNISAL saliency model, static path (PyTorch, NCHW inside).
+
+Port of the static branch of ``retargetvid_tpu/models/unisal.py:UNISAL``
+(the crop pipeline's mode; the ConvGRU branch is not ported): MobileNetV2
+backbone with 2x/4x skip taps, 16 learned Gaussian prior maps concatenated
+at the coarsest scale, a Post-CNN inverted residual, a two-stage decoder
+with skip concatenations, a per-source 1x1 adaptation conv, nearest resize
+to the input size, an edge-padded Gaussian smoothing conv applied as its
+stored rank-r factors (two 1-D convs), a bilinear resize to the target size
+and a spatial log-softmax.
+
+The public call keeps the JAX layout: (B, T, H, W, 3) in,
+(B, T, th, tw, 1) log-probabilities out.  The network computes in the dtype
+of its parameters; an input of another dtype is cast to it (the JAX model's
+float32 parameters likewise promote a bf16 input to float32).
+"""
+
+from __future__ import annotations
+
+import itertools
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+from torch.nn import functional as F
+
+from retargetvid_tpu_torch.models.layers import (
+    DEFAULT_SOURCES,
+    Conv1x1BN,
+    InvertedResidual,
+    apply_bn,
+    make_bn,
+)
+from retargetvid_tpu_torch.models.mobilenet_v2 import MobileNetV2
+from retargetvid_tpu_torch.ops.resize import resize
+
+__all__ = ["UNISAL", "manual_gaussian_init", "gaussian_prior_maps",
+           "spatial_log_softmax", "smoothing_kernel_init",
+           "factorize_smoothing_kernel"]
+
+
+def manual_gaussian_init() -> np.ndarray:
+    """The 16 hand-placed Gaussians (reference ``model.py:323-331``):
+    (16, 2, 2) -- [gaussian, y/x, mu/logstd]."""
+    mus = (list(itertools.product([0.25, 0.5, 0.75], repeat=2)) +
+           [(0.5, 0.25), (0.5, 0.5), (0.5, 0.75)] +
+           [(0.25, 0.5), (0.5, 0.5), (0.75, 0.5)] +
+           [(0.5, 0.5)])
+    logstds = [(-1.5, -1.5)] * 9 + [(0.0, -1.5)] * 3 + \
+              [(-1.5, 0.0)] * 3 + [(0.0, 0.0)]
+    out = np.zeros((16, 2, 2), np.float32)
+    for g in range(16):
+        out[g, 0] = (mus[g][0], logstds[g][0])
+        out[g, 1] = (mus[g][1], logstds[g][1])
+    return out
+
+
+def gaussian_prior_maps(gaussians: torch.Tensor, size_hw: Tuple[int, int],
+                        scaling: float = 6.0) -> torch.Tensor:
+    """(G, 2, 2) Gaussian parameters -> (G, H, W) prior maps."""
+    h, w = size_hw
+    dev, dt = gaussians.device, gaussians.dtype
+    gy = torch.linspace(0.0, 1.0, h, device=dev, dtype=dt)[None, :, None]
+    gx = torch.linspace(0.0, 1.0, w, device=dev, dtype=dt)[None, None, :]
+    mu_y = gaussians[:, 0, 0][:, None, None]
+    std_y = torch.exp(gaussians[:, 0, 1])[:, None, None]
+    mu_x = gaussians[:, 1, 0][:, None, None]
+    std_x = torch.exp(gaussians[:, 1, 1])[:, None, None]
+    m = torch.exp(-((gy - mu_y) / std_y) ** 2 / 2.0) * \
+        torch.exp(-((gx - mu_x) / std_x) ** 2 / 2.0)
+    return m * scaling
+
+
+def smoothing_kernel_init(ksize: int = 41) -> np.ndarray:
+    """Normalized Gaussian smoothing kernel (reference ``model.py:264-272``),
+    mu=0.5, logstd=-2 on a [0, 1] grid; (k, k)."""
+    grid = np.linspace(0.0, 1.0, ksize)
+    g1 = np.exp(-(((grid - 0.5) / np.exp(-2.0)) ** 2) / 2.0)
+    k = np.outer(g1, g1)
+    return (k / k.sum()).astype(np.float32)
+
+
+def factorize_smoothing_kernel(kernel2d: np.ndarray, rank: int):
+    """SVD factors of a (k, k) kernel as conv weights (OIHW):
+    ``kv`` (r, 1, k, 1) and ``kh`` (1, r, 1, k), so that the vertical then
+    the horizontal conv equal the 2-D conv up to ``sigma_{r+1}/sigma_1``."""
+    k = kernel2d.shape[0]
+    u, s, vt = np.linalg.svd(kernel2d.astype(np.float64))
+    r = min(rank, k)
+    kv = (u[:, :r] * s[:r]).T.reshape(r, 1, k, 1).astype(np.float32)
+    kh = vt[:r, :].reshape(1, r, 1, k).astype(np.float32)
+    trunc = float(s[r] / s[0]) if r < k else 0.0
+    return kv, kh, trunc
+
+
+def spatial_log_softmax(x: torch.Tensor) -> torch.Tensor:
+    """Log-softmax over the two trailing (spatial) dims."""
+    shape = x.shape
+    return F.log_softmax(x.reshape(shape[:-2] + (-1,)), dim=-1).reshape(shape)
+
+
+class _SkipConnection(nn.Module):
+    """expansion (1x1 conv + BN + ReLU6) -> reduction (1x1 conv + BN).
+
+    The reference's dropout sits between them; inference skips it.
+    """
+
+    def __init__(self, in_ch: int, out_ch: int, expand_ratio: int = 2,
+                 sources: Sequence[str] = DEFAULT_SOURCES):
+        super().__init__()
+        hidden = round(in_ch * expand_ratio)
+        self.expansion = Conv1x1BN(in_ch, hidden, sources=sources,
+                                   ds_bn=True)
+        self.reduction_conv = nn.Conv2d(hidden, out_ch, 1, bias=True)
+        self.reduction_bn = make_bn(out_ch, True, sources)
+
+    def forward(self, x, source):
+        x = self.expansion(x, source)
+        return apply_bn(self.reduction_bn, self.reduction_conv(x), source)
+
+
+class UNISAL(nn.Module):
+    """UNISAL static path; see the module docstring for the layout."""
+
+    def __init__(self, rnn_input_channels: int = 256,
+                 cnn_widen_factor: float = 1.0,
+                 cnn_last_channel: Optional[int] = 1280,
+                 n_gaussians: int = 16, smoothing_ksize: int = 41,
+                 smoothing_rank: int = 8,
+                 sources: Sequence[str] = DEFAULT_SOURCES,
+                 rnn_hidden_channels: Optional[int] = None):
+        super().__init__()
+        # ``rnn_hidden_channels`` is accepted so a JAX config dict maps
+        # across unchanged; the static path has no recurrent state.
+        del rnn_hidden_channels
+        if not smoothing_rank:
+            raise NotImplementedError(
+                'the port applies the smoothing conv as rank-r factors; '
+                'smoothing_rank=None (full 2-D kernel) is not ported')
+        self.sources = tuple(sources)
+        self.n_gaussians = n_gaussians
+        self.smoothing_ksize = smoothing_ksize
+        self.cnn = MobileNetV2(widen_factor=cnn_widen_factor,
+                               last_channel=cnn_last_channel)
+        self.skip_2x = _SkipConnection(self.cnn.feat_2x_channels, 128, 2,
+                                       sources)
+        self.skip_4x = _SkipConnection(self.cnn.feat_4x_channels, 64, 2,
+                                       sources)
+        feat_ch = self.cnn.out_channels
+        if n_gaussians > 0:
+            g0 = torch.from_numpy(manual_gaussian_init())
+            for src in self.sources:
+                setattr(self, f'coarse_gaussians_{src.lower()}',
+                        nn.Parameter(g0.clone()))
+            feat_ch += g0.shape[0]
+        self.post_cnn = InvertedResidual(feat_ch, rnn_input_channels, 1, 1,
+                                         sources=sources, ds_bn=False)
+        self.upsampling_2_inv_res = InvertedResidual(
+            rnn_input_channels + 128, 128, 1, 2, sources=sources, ds_bn=True)
+        self.post_upsampling_2_inv_res = InvertedResidual(
+            128 + 64, 64, 1, 2, sources=sources, ds_bn=True)
+        kv, kh, _ = factorize_smoothing_kernel(
+            smoothing_kernel_init(smoothing_ksize), smoothing_rank)
+        for src in self.sources:
+            lo = src.lower()
+            setattr(self, f'adaptation_{lo}', nn.Conv2d(64, 1, 1, bias=True))
+            setattr(self, f'smoothing_v_{lo}',
+                    nn.Parameter(torch.from_numpy(kv.copy())))
+            setattr(self, f'smoothing_h_{lo}',
+                    nn.Parameter(torch.from_numpy(kh.copy())))
+
+    def forward(self, x, target_size: Optional[Tuple[int, int]] = None,
+                source: str = 'DHF1K'):
+        if source not in self.sources:
+            raise ValueError(f'unknown source {source!r}')
+        b, t, h, w, c = x.shape
+        if target_size is None:
+            target_size = (h, w)
+        lo = source.lower()
+        dtype = self.cnn.features_0.conv.weight.dtype
+        flat = x.reshape(b * t, h, w, c).permute(0, 3, 1, 2).to(dtype)
+        feat_1x, feat_2x, feat_4x = self.cnn(flat)
+        feat_2x = self.skip_2x(feat_2x, source)
+        feat_4x = self.skip_4x(feat_4x, source)
+
+        if self.n_gaussians > 0:
+            priors = gaussian_prior_maps(
+                getattr(self, f'coarse_gaussians_{lo}'), feat_1x.shape[2:])
+            priors = priors[None].expand(feat_1x.shape[0], -1, -1, -1)
+            feat_1x = torch.cat([feat_1x, priors.to(dtype)], dim=1)
+        up = self.post_cnn(feat_1x, source)
+
+        # Decoder.
+        up = resize(up, (up.shape[2] * 2, up.shape[3] * 2), 'linear',
+                    channels_last=False).to(dtype)
+        up = torch.cat([up, feat_2x], dim=1)
+        up = self.upsampling_2_inv_res(up, source)
+        up = resize(up, (up.shape[2] * 2, up.shape[3] * 2), 'linear',
+                    channels_last=False).to(dtype)
+        up = torch.cat([up, feat_4x], dim=1)
+        up = self.post_upsampling_2_inv_res(up, source)
+        up = getattr(self, f'adaptation_{lo}')(up)
+
+        # Nearest resize to the input size, edge pad, factored smoothing.
+        up = resize(up, (h, w), 'nearest', channels_last=False).to(dtype)
+        pad = self.smoothing_ksize // 2
+        up = F.pad(up, (pad, pad, pad, pad), mode='replicate')
+        up = F.conv2d(up, getattr(self, f'smoothing_v_{lo}'))
+        up = F.conv2d(up, getattr(self, f'smoothing_h_{lo}'))
+
+        up = resize(up, target_size, 'linear', channels_last=False)
+        up = spatial_log_softmax(up)                      # (BT, 1, th, tw)
+        return up.permute(0, 2, 3, 1).reshape(b, t, *up.shape[2:], 1)

@@ -1,0 +1,263 @@
+"""The geometry chain: saliency volume -> crop boxes.
+
+Port of ``retargetvid_tpu/pipeline/geometry.py:GeometryConfig,
+_cut_boundary_fixup, geometry_pipeline`` (reference ``smart_vid_crop``,
+``smartVidCrop.py:2296-2522``):
+
+    threshold -> clustering filter (+ cut-boundary map averaging) ->
+    center of mass -> empty-center fill -> per-segment interpolation ->
+    Butterworth low-pass -> LOESS -> crop boxes
+
+over padded shapes: frame counts, segment counts and segment lengths are
+data, only the bucket sizes are shapes.  The reference's sequential
+cut-boundary averaging (frame i's *filtered* map feeds frame i+1's filter
+input near shot cuts) is reproduced by recomputing exactly the affected
+frames in order, up to the clip's real redo count.
+
+Not ported (``NotImplementedError``): ``resize_factor != 1``,
+``focus_stability``, ``tpu_adaptive_link``, ``shift_time > 0`` and
+Savitzky-Golay smoothing.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from retargetvid_tpu_torch.ops.boxes import compute_crop_boxes
+from retargetvid_tpu_torch.ops.center import center_of_mass
+from retargetvid_tpu_torch.ops.clustering import filter_frames
+from retargetvid_tpu_torch.ops.filters import smooth_segments
+from retargetvid_tpu_torch.ops.interpolate import interpolate_segments
+from retargetvid_tpu_torch.ops.morphology import close as morph_close
+from retargetvid_tpu_torch.ops.temporal import fill_empty_centers
+from retargetvid_tpu_torch.ops.threshold import threshold_saliency
+
+__all__ = ["GeometryConfig", "geometry_pipeline", "bucket_size",
+           "seg_bucket_size"]
+
+_BUCKETS = (32, 48, 64, 96, 128, 160, 192, 256, 320, 384, 512, 640, 768,
+            1024, 1536, 2048, 3072, 4096, 6144, 8192)
+
+
+def bucket_size(n: int) -> int:
+    for b in _BUCKETS:
+        if n <= b:
+            return b
+    return int(np.ceil(n / 4096) * 4096)
+
+
+def seg_bucket_size(n: int) -> int:
+    """Shot-segment count bucket."""
+    for b in (4, 8, 16, 32, 64):
+        if n <= b:
+            return b
+    return bucket_size(n)
+
+
+@dataclasses.dataclass(frozen=True)
+class GeometryConfig:
+    """Pipeline parameters, from ``crop_params``."""
+    t_threshold: int = 120
+    clust_filt: bool = True
+    hdbscan_min: int = 26
+    select_sum: int = 2
+    resize_factor: float = 1.0
+    resize_type: int = 1
+    op_close: bool = True
+    value_bias: float = 1.0
+    com_km: bool = True
+    focus_stability: bool = False
+    foces_stab_t: float = 60.0
+    foces_stab_s: float = 1.5
+    min_d_jump: float = 10.0
+    skip: int = 6
+    loess_filt: int = 1
+    loess_w_secs: float = 2.0
+    loess_degree: int = 2
+    lp_filt: int = 1
+    lp_cutoff: float = 2.0
+    lp_order: int = 5
+    shift_time: int = 0
+    bridge: int = 1
+    cc_iters: int = 12
+    adaptive_min_samples: int | None = None
+    adaptive_max_radius: int = 4
+    #: Replicate the reference ingest's off-by-one (the last selected
+    #: frame's saliency map stays zero).
+    quirk_batch_tail: bool = True
+
+    @classmethod
+    def from_crop_params(cls, cp: dict) -> "GeometryConfig":
+        adaptive = None
+        if cp.get('tpu_adaptive_link', False) and cp['clust_filt']:
+            adaptive = cp.get('hdbscan_min_samples') or cp['hdbscan_min']
+        return cls(
+            adaptive_min_samples=adaptive,
+            quirk_batch_tail=not cp.get('tpu_fix_batch_tail', False),
+            t_threshold=cp['t_threshold'],
+            clust_filt=cp['clust_filt'],
+            hdbscan_min=cp['hdbscan_min'],
+            select_sum=cp['select_sum'],
+            resize_factor=float(cp['resize_factor']),
+            resize_type=cp['resize_type'],
+            op_close=cp['op_close'],
+            value_bias=float(cp['value_bias']),
+            com_km=cp['com_km'],
+            focus_stability=cp['focus_stability'],
+            foces_stab_t=float(cp['foces_stab_t']),
+            foces_stab_s=float(cp['foces_stab_s']),
+            min_d_jump=float(cp['min_d_jump']),
+            skip=cp['skip'],
+            loess_filt=cp['loess_filt'],
+            loess_w_secs=float(cp['loess_w_secs']),
+            loess_degree=cp['loess_degree'],
+            lp_filt=cp['lp_filt'],
+            lp_cutoff=float(cp['lp_cutoff']),
+            lp_order=cp['lp_order'],
+            shift_time=cp['shift_time'],
+        )
+
+    def check_ported(self) -> None:
+        """Raise for the settings this port does not implement yet."""
+        unported = []
+        if self.resize_factor != 1.0:
+            unported.append('resize_factor != 1')
+        if self.focus_stability:
+            unported.append('focus_stability')
+        if self.adaptive_min_samples is not None:
+            unported.append('tpu_adaptive_link')
+        if self.shift_time > 0:
+            unported.append('shift_time > 0')
+        if not self.loess_filt:
+            unported.append('Savitzky-Golay (loess_filt=0)')
+        if not self.com_km:
+            unported.append('com_km=False')
+        if unported:
+            raise NotImplementedError(
+                'not ported yet: ' + ', '.join(unported))
+
+
+def _refilter(inp: torch.Tensor, cfg: GeometryConfig) -> torch.Tensor:
+    """Clustering filter of (K, H, W) maps with the caller-side gates:
+    close the surviving blob, pass the input through when there are too
+    few points or no cluster."""
+    out, any_valid, n_points = filter_frames(
+        inp, min_cluster_size=cfg.hdbscan_min, select_sum=cfg.select_sum,
+        bridge=cfg.bridge, cc_iters=cfg.cc_iters)
+    if cfg.op_close:
+        out = torch.where(any_valid[:, None, None], morph_close(out, 5), out)
+    use = (n_points > cfg.hdbscan_min + 1) & any_valid
+    return torch.where(use[:, None, None], out, inp)
+
+
+def _cut_boundary_fixup(raw: torch.Tensor, pass1: torch.Tensor,
+                        cut_mask: torch.Tensor, fc_sel: int,
+                        cfg: GeometryConfig, max_cuts: int) -> torch.Tensor:
+    """Reproduce the sequential averaging of ``smartVidCrop.py:2369-2373``.
+
+    For each i in order: if i < fc_sel-2 and a cut lies in {i-1, i, i+1},
+    frame i+1's filter INPUT becomes the uint8 average of raw frame i+1 and
+    frame i's OUTPUT, with the reference's mod-256 wrap of the uint8 sum.
+    Only the affected frames are recomputed, in ascending order, up to the
+    clip's real redo count.
+    """
+    t = raw.shape[0]
+    dev = raw.device
+    idx = torch.arange(t, device=dev)
+    false1 = torch.zeros(1, dtype=torch.bool, device=dev)
+    prev_cut = torch.cat([false1, cut_mask[:-1]])
+    next_cut = torch.cat([cut_mask[1:], false1])
+    avg_here = (prev_cut | cut_mask | next_cut) & (idx < fc_sel - 2)
+    needs_redo = torch.cat([false1, avg_here[:-1]])
+    k_cap = int(min(3 * (max_cuts + 1), t))
+    redo = torch.nonzero(needs_redo)[:k_cap, 0].tolist()
+
+    acc = pass1.clone()
+    prev_idx, prev_out = -2, None
+    for jc in redo:
+        # Chained redos feed the previous step's output; otherwise the
+        # previous frame keeps its pass-1 result.
+        prev_map = prev_out if prev_idx == jc - 1 else pass1[max(jc - 1, 0)]
+        inp = torch.trunc(torch.remainder(raw[jc] + prev_map, 256.0) / 2.0)
+        out = _refilter(inp[None], cfg)[0]
+        acc[jc] = out
+        prev_idx, prev_out = jc, out
+    return acc
+
+
+def geometry_pipeline(smaps, sel_mask, fc_sel, true_inds,
+                      seg_starts, seg_ends, seg_sel_starts, seg_sel_ends,
+                      n_segments, fc, border_t, border_b, border_l, border_r,
+                      *, cfg: GeometryConfig, fps: float, h_orig: int,
+                      w_orig: int, w_final, h_final, t_out: int) -> dict:
+    """The geometry chain over padded inputs; see the module docstring.
+
+    ``smaps`` (T_sel_pad, H, W); ``sel_mask``/``true_inds`` (T_sel_pad,);
+    segment arrays (S,); ``fc_sel``/``n_segments`` live counts (ints or
+    0-d tensors).  Returns ``boxes`` (t_out, 4) int32 and the series.
+    """
+    del fc                                  # carried for signature parity
+    cfg.check_ported()
+    smaps = smaps.to(torch.float32)
+    t_sel_pad, h, w = smaps.shape
+    dev = smaps.device
+    fc_sel = int(fc_sel)
+    n_segments = int(n_segments)
+
+    sm = threshold_saliency(smaps, cfg.t_threshold)
+
+    if cfg.clust_filt:
+        pass1 = _refilter(sm, cfg)
+        # Cut mask over selected frames: live segment starts + last frame.
+        live_seg = torch.arange(seg_sel_starts.shape[0], device=dev) \
+            < n_segments
+        starts = torch.clamp(seg_sel_starts.to(torch.int64), 0,
+                             t_sel_pad - 1)
+        hits = torch.zeros((t_sel_pad,), dtype=torch.int32, device=dev)
+        cut_mask = hits.index_add_(0, starts, live_seg.to(torch.int32)) > 0
+        cut_mask[min(max(fc_sel - 1, 0), t_sel_pad - 1)] = True
+        sm = _cut_boundary_fixup(sm, pass1, cut_mask, fc_sel, cfg,
+                                 max_cuts=int(seg_sel_starts.shape[0]) + 1)
+
+    cx, cy, valid = center_of_mass(sm, km=cfg.com_km,
+                                   factor=cfg.resize_factor)
+    valid = valid & sel_mask
+
+    pad_sentinel = -10 ** 6
+    live_seg = torch.arange(seg_sel_starts.shape[0], device=dev) < n_segments
+    sentinel = torch.full_like(seg_sel_starts, pad_sentinel)
+    s_starts = torch.where(live_seg, seg_sel_starts, sentinel)
+    s_ends = torch.where(live_seg, seg_sel_ends, sentinel)
+    cx, cy = fill_empty_centers(cx, cy, valid, s_starts, s_ends,
+                                frame_mask=sel_mask)
+    jumps = torch.full((t_sel_pad,), 255.0, dtype=torch.float32, device=dev)
+
+    max_samples, max_len = t_sel_pad, t_out
+    dxi = interpolate_segments(cx, true_inds, seg_starts, seg_ends,
+                               seg_sel_starts, seg_sel_ends, n_segments,
+                               t_out, max_samples, max_len)
+    dyi = interpolate_segments(cy, true_inds, seg_starts, seg_ends,
+                               seg_sel_starts, seg_sel_ends, n_segments,
+                               t_out, max_samples, max_len)
+
+    dxs, dys, dxl, dyl = smooth_segments(
+        dxi, dyi, seg_starts, seg_ends, n_segments,
+        fps=fps, loess_filt=cfg.loess_filt, w_secs=cfg.loess_w_secs,
+        degree=cfg.loess_degree, lp_filt=cfg.lp_filt,
+        lp_cutoff=cfg.lp_cutoff, lp_order=cfg.lp_order, max_len=max_len)
+
+    boxes, fbb_w, fbb_h = compute_crop_boxes(
+        dxs, dys, w_orig=w_orig, h_orig=h_orig, w_process=w, h_process=h,
+        w_final=w_final, h_final=h_final, border_t=border_t,
+        border_b=border_b, border_l=border_l, border_r=border_r)
+
+    return {
+        'boxes': boxes, 'fbb_w': fbb_w, 'fbb_h': fbb_h,
+        'smaps_filtered': torch.clamp(sm, 0, 255).to(torch.uint8),
+        'dx': cx, 'dy': cy, 'jumps': jumps,
+        'dxi': dxi, 'dyi': dyi, 'dxs': dxs, 'dys': dys,
+        'dxl': dxl, 'dyl': dyl,
+    }
