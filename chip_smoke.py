@@ -10,10 +10,16 @@ fails (exit code != 0) if any phase fails:
   (a) build: compile every CUDA kernel of the port from ``csrc/`` (one
       ``nvcc`` per source, started together) and report the seconds;
   (b) kernel vs plain version: the saliency-postprocess kernel against its
-      plain PyTorch version at the main path's shape (96, 140, 250) float32,
-      one all -inf frame and one constant frame included; at most 1 LSB
-      apart, zeros on the -inf frame; CUDA-event times beside the
-      bytes bound;
+      plain PyTorch version at the main path's shape (96, 140, 250) float32
+      and at further shapes (one frame, ragged, larger than a cluster holds
+      on chip, small), on wide-range inputs and on an unaligned view; all
+      -inf frames give zeros, constant frames 255; the kernel must be
+      bit-equal (it fails on any differing pixel and reports the count).
+      Times beside the bytes bound: ``ms_device`` (cold L2) and
+      ``ms_device_warm`` are device time per launch from a CUDA graph of 60
+      launches replayed between two events, ``ms_call`` a single call with
+      the host's enqueue in it; ``plain_ms`` is the plain version timed as
+      ``ms_device``;
   (c) main path: ``OneShotClipProgram.run`` on the synthetic 480x360x640
       clip of ``bench.py`` (30 fps, 1:3 ratio), full-width TransNetV1 and
       UNISAL with seeded random weights, bf16; warm-up on seed 100, median
@@ -26,8 +32,8 @@ fails (exit code != 0) if any phase fails:
       on a small clip.
 
 ``--profile DIR`` adds one ``torch.profiler`` run of a main-path clip
-(device busy time, idle share, kernel launches; the per-operator table
-goes to ``DIR/profile_main_path.txt``).
+(device busy time, idle share, kernel launches, the postprocess kernel's own
+device time; the per-operator table goes to ``DIR/profile_main_path.txt``).
 
 Each phase prints one JSON line carrying the card's name and power limit;
 then a line with every kernel's record, the ``nvidia-smi`` name/power-limit
@@ -82,8 +88,12 @@ def emit(card: str, **fields):
     print(json.dumps({**fields, 'card': card}), flush=True)
 
 
-def time_ms(fn, n: int = 25) -> float:
-    """Median CUDA-event time of ``n`` calls after 3 warm-up calls."""
+def call_ms(fn, n: int = 25) -> float:
+    """Median CUDA-event time of ``n`` single calls after 3 warm-up calls.
+
+    The device is idle when each call starts, so this is the host's enqueue
+    (argument checks, allocation, the launch) plus the device work: a
+    per-call time, not a kernel time."""
     import torch
     for _ in range(3):
         fn()
@@ -99,6 +109,35 @@ def time_ms(fn, n: int = 25) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, inputs, n: int = 60, reps: int = 15) -> float:
+    """Device time per call: ``n`` calls of ``fn``, cycling over
+    ``inputs``, captured into one CUDA graph and replayed between two
+    events (median of ``reps`` replays, over ``n``).  The host's enqueue is
+    not in it.  With inputs that together exceed the 50 MB L2, each call
+    finds its input cold; with one input, warm."""
+    import torch
+    for x in inputs:
+        fn(x)                                   # warm-up, outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(n):
+            fn(inputs[i % len(inputs)])
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    del graph
+    return statistics.median(times)
+
+
 def phase_build(card):
     from retargetvid_tpu_torch.kernels.build import BUILD_DIR, build_all
     t0 = time.perf_counter()
@@ -107,50 +146,129 @@ def phase_build(card):
          build_dir=str(BUILD_DIR))
 
 
-def phase_kernel(card):
+#: The main path's postprocess input: 81 picks padded to 96 frames of the
+#: 140x250 saliency map.
+MAIN_SHAPE = (96, 140, 250)
+#: Further shapes the kernel is held at: one frame; a ragged frame
+#: (hw % 4 != 0); frames larger than a cluster holds on chip; small frames.
+EXTRA_SHAPES = ((1, 140, 250), (3, 37, 53), (2, 720, 1280), (5, 32, 128))
+#: (scale, offset) of wide-range inputs ``randn * scale + offset`` at the
+#: main shape, for the kernel's division: exp spanning many decades,
+#: subnormal exp values beside normal maxima, and maxima above 2^125.
+STRESS = ((20.0, 0.0), (1.0, -87.0), (3.0, -95.0), (30.0, 60.0))
+
+
+def log_maps(shape, seed):
+    """Seeded per-frame log-softmax maps on the card, with an all -inf
+    frame (exp gives zeros) and a constant frame where there is room."""
+    import torch
+    t, h, w = shape
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+    logits = torch.randn((t, h * w), generator=gen, device='cuda') * 2.0
+    logp = torch.log_softmax(logits, dim=1).reshape(t, h, w)
+    special = {}
+    if t >= 2:
+        special['neg_inf'] = 3 if t > 3 else t - 1
+        logp[special['neg_inf']] = -float('inf')
+    if t >= 3:
+        special['constant'] = 5 if t > 5 else 1
+        logp[special['constant']] = -float(np.log(h * w))
+    return logp.contiguous(), special
+
+
+def check_kernel_case(logp, special, label):
+    """Kernel vs plain version on one input: differing pixels, max LSB, the
+    -inf frame all zeros and the constant frame all 255.  Fails on any
+    differing pixel (a max is exact in any order, so the kernel is
+    bit-equal); returns the case's record."""
     import torch
 
     from retargetvid_tpu_torch.kernels.postprocess import (
         saliency_postprocess,
         saliency_postprocess_reference,
     )
-    t, h, w = 96, 140, 250
-    gen = torch.Generator(device='cuda').manual_seed(0)
-    logits = torch.randn((t, h, w), generator=gen, device='cuda') * 2.0
-    logp = torch.log_softmax(logits.reshape(t, -1), dim=1).reshape(t, h, w)
-    logp[3] = -float('inf')                       # exp -> all zeros
-    logp[5] = -float(np.log(h * w))               # constant frame
-    logp = logp.contiguous()
     out = saliency_postprocess(logp)
     ref = saliency_postprocess_reference(logp)
     torch.cuda.synchronize()
     diff = (out.to(torch.int32) - ref.to(torch.int32)).abs()
     max_err = int(diff.max())
     n_diff = int((diff > 0).sum())
-    if max_err > 1:
-        fail(f'postprocess kernel differs from its plain version by '
-             f'{max_err} LSB')
-    if int(out[3].to(torch.int32).abs().sum()) != 0:
-        fail('postprocess kernel: the all -inf frame is not all zeros')
-    if not bool((out[5] == 255).all()):
-        fail('postprocess kernel: the constant frame is not all 255')
-    ms = time_ms(lambda: saliency_postprocess(logp))
-    plain_ms = time_ms(lambda: saliency_postprocess_reference(logp))
-    n_px = t * h * w
+    if n_diff:
+        fail(f'postprocess kernel, {label}: differs from its plain version '
+             f'by {max_err} LSB in {n_diff} pixels')
+    if 'neg_inf' in special and bool(out[special['neg_inf']].any()):
+        fail(f'postprocess kernel, {label}: the all -inf frame is not all '
+             f'zeros')
+    if 'constant' in special and not bool(
+            (out[special['constant']] == 255).all()):
+        fail(f'postprocess kernel, {label}: the constant frame is not all '
+             f'255')
+    return {'case': label, 'shape': list(logp.shape), 'n_px': logp.numel(),
+            'n_diff': n_diff, 'max_abs_err': max_err}
+
+
+def phase_kernel(card):
+    import torch
+
+    from retargetvid_tpu_torch.kernels.postprocess import (
+        launch_plan,
+        saliency_postprocess,
+        saliency_postprocess_reference,
+    )
+    logp, special = log_maps(MAIN_SHAPE, seed=0)
+    cases = [check_kernel_case(logp, special, 'main')]
+    for i, shape in enumerate(EXTRA_SHAPES):
+        x, sp = log_maps(shape, seed=1 + i)
+        cases.append(check_kernel_case(x, sp, 'x'.join(map(str, shape))))
+    gen = torch.Generator(device='cuda').manual_seed(7)
+    for scale, offset in STRESS:
+        x = torch.randn(MAIN_SHAPE, generator=gen, device='cuda') * scale \
+            + offset
+        cases.append(check_kernel_case(x, {}, f'main, randn*{scale:g}'
+                                              f'{offset:+g}'))
+    # A contiguous input whose base is 4 bytes past a 16-byte boundary.
+    flat = torch.empty(logp.numel() + 1, device='cuda')
+    shifted = flat[1:].view(MAIN_SHAPE)
+    shifted.copy_(logp)
+    cases.append(check_kernel_case(shifted, special, 'main, unaligned'))
+    del flat, shifted
+    max_err = max(c['max_abs_err'] for c in cases)
+
+    # Times: 6 inputs of 13.44 MB (80.6 MB together) cycle through the L2,
+    # so each launch finds its input cold; the main path's input was just
+    # written by UNISAL and is mostly warm.
+    cold = [logp] + [log_maps(MAIN_SHAPE, seed=10 + i)[0] for i in range(5)]
+    ms_dev = device_ms(saliency_postprocess, cold)
+    ms_dev_warm = device_ms(saliency_postprocess, [logp])
+    plain_ms = device_ms(saliency_postprocess_reference, cold)
+    # Not the same function: one PyTorch kernel moving the same bytes (read
+    # the float32 stack, write uint8), a yardstick for what the memory gives.
+    cast_ms = device_ms(lambda x: x.to(torch.uint8), cold)
+    ms_call = call_ms(lambda: saliency_postprocess(logp))
+    plain_ms_call = call_ms(lambda: saliency_postprocess_reference(logp))
+    del cold
+    n_px = logp.numel()
     moved = n_px * 4 + n_px * 1                   # read f32, write uint8
     ops = n_px * 4                                # exp, max, divide, scale
     bound_ms = max(moved / H100_BYTES_PER_S, ops / H100_FP32_FLOPS) * 1e3
     bound_by = ('bytes' if moved / H100_BYTES_PER_S
                 >= ops / H100_FP32_FLOPS else 'operations')
+    t, h, w = MAIN_SHAPE
+    plan = launch_plan(t, h * w)
     emit(card, phase='kernel', kernel='saliency_postprocess',
-         shape=[t, h, w], max_abs_err=max_err, n_diff=n_diff,
-         tolerance='<= 1 LSB', ms=ms, plain_ms=plain_ms,
-         bound_ms=bound_ms, bound_by=bound_by, bytes=moved)
+         shape=list(MAIN_SHAPE), plan=plan._asdict(), cases=cases,
+         max_abs_err=max_err, tolerance='0 LSB', ms_device=ms_dev,
+         ms_device_warm=ms_dev_warm, ms_call=ms_call, plain_ms=plain_ms,
+         plain_ms_call=plain_ms_call, same_bytes_cast_ms=cast_ms,
+         bound_ms=bound_ms, bound_by=bound_by,
+         bound_share=bound_ms / ms_dev, bytes=moved)
     return {'name': 'saliency_postprocess', 'route': 'cuda',
             'source': 'retargetvid_tpu_torch/csrc/saliency_postprocess.cu',
             'replaces': 'retargetvid_tpu/ops/pallas_kernels.py:39',
-            'max_abs_err': max_err, 'ms': ms, 'plain_ms': plain_ms,
-            'bound_ms': bound_ms, 'bound_by': bound_by,
+            'cluster': plan.cluster,
+            'max_abs_err': max_err, 'ms': ms_dev, 'ms_device': ms_dev,
+            'ms_device_warm': ms_dev_warm, 'ms_call': ms_call,
+            'plain_ms': plain_ms, 'bound_ms': bound_ms, 'bound_by': bound_by,
             # No single PyTorch call computes exp + per-frame max-normalize
             # + uint8 quantization.
             'library_ms': None}
@@ -255,12 +373,20 @@ def profile_clip(card, program, clip, cp, kw, out_dir: Path):
     key = ('self_device_time_total'
            if hasattr(avg[0], 'self_device_time_total')
            else 'self_cuda_time_total')
+    # The postprocess kernel's own device duration on the path (its input
+    # just written by UNISAL), as the profiler records it.
+    pp = [a for a in avg if 'saliency_postprocess' in a.key
+          and getattr(a, key) > 0]
+    pp_count = sum(a.count for a in pp)
+    pp_us = sum(getattr(a, key) for a in pp) / pp_count if pp_count else None
     out_dir.mkdir(parents=True, exist_ok=True)
     (out_dir / 'profile_main_path.txt').write_text(
         f'{card}\n' + avg.table(sort_by=key, row_limit=40))
     emit(card, phase='profile', wall_ms=wall_ms, device_busy_ms=busy_ms,
          device_idle_share=1.0 - busy_ms / wall_ms,
          kernel_launches=len(kernels),
+         postprocess_kernel_device_us=pp_us,
+         postprocess_kernel_rows=[a.key for a in pp],
          table=str(out_dir / 'profile_main_path.txt'))
 
 

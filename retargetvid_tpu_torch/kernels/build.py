@@ -23,7 +23,7 @@ import tempfile
 from pathlib import Path
 
 __all__ = ["KERNEL_SOURCES", "BUILD_DIR", "build_all", "load_library",
-           "check_launch"]
+           "check_launch", "nvcc_command"]
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / 'build' / 'kernels'
@@ -44,6 +44,12 @@ def _nvcc() -> str:
                        'kernels are built from source at first use')
 
 
+def nvcc_command(source, target) -> list:
+    """The ``nvcc`` command line that builds ``source`` into the shared
+    library ``target``."""
+    return [_nvcc(), *NVCC_FLAGS, '-o', str(target), str(source)]
+
+
 def _lib_path(name: str) -> Path:
     src = CSRC_DIR / KERNEL_SOURCES[name]
     digest = hashlib.sha256(src.read_bytes() + ' '.join(NVCC_FLAGS).encode())
@@ -59,8 +65,7 @@ def _start_build(name: str):
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix='.so', dir=BUILD_DIR)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, '-o', tmp,
-           str(CSRC_DIR / KERNEL_SOURCES[name])]
+    cmd = nvcc_command(CSRC_DIR / KERNEL_SOURCES[name], tmp)
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, target
@@ -87,14 +92,21 @@ def build_all(names=None) -> None:
         _finish_build(n, s)
 
 
-def load_library(name: str) -> ctypes.CDLL:
-    """The kernel's shared library, built first if needed."""
+def load_library(name: str, signatures=None) -> ctypes.CDLL:
+    """The kernel's shared library, built first if needed.
+
+    ``signatures`` maps each C function to ``(argtypes, restype)``; they are
+    set once, when the library is first loaded."""
     lib = _LOADED.get(name)
     if lib is None:
         build_all([name])
         lib = ctypes.CDLL(str(_lib_path(name)))
-        lib.rtv_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.rtv_cuda_error_string.restype = ctypes.c_char_p
+        sigs = {'rtv_cuda_error_string': ([ctypes.c_int], ctypes.c_char_p),
+                **(signatures or {})}
+        for fn_name, (argtypes, restype) in sigs.items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = restype
         _LOADED[name] = lib
     return lib
 

@@ -160,10 +160,15 @@ def _resize_axis(x: torch.Tensor, dim: int, dst: int, method: str,
     """One axis of the separable product, as a sum over the matrix's taps.
 
     Each output is ``w_0*x_0 + w_1*x_1 + ...`` summed in ascending source
-    order, every product rounded to float32 before it is added.  That is
-    the rounding the JAX package's float32 product gets on the CPU, so the
-    uint8 ingest resizes agree exactly; a BLAS matmul fuses multiply and add
-    and flips values that sit on a .5 boundary.
+    order, every product rounded to float32 before it is added; the card
+    computes it the same way every time.  It is what XLA:CPU computes for
+    both products of the 360x640 -> 27x48 ingest (equal in uint8) and for
+    the height product of 360x640 -> 140x250.  For that shape's width
+    product XLA:CPU fuses the second tap, ``fma(x1, w1, round(x0*w0))``, so
+    0.03% of its uint8 values sit on the other side of a .5 boundary
+    (``tests/test_torch_resize.py`` pins both forms).  XLA's choice follows
+    the shape, so no one rounding rule matches it everywhere; a BLAS matmul
+    fuses too and matches neither.
     """
     idx_np, w_np = _taps_np(int(x.shape[dim]), dst, method, scale)
     idx = torch.from_numpy(idx_np).to(x.device)

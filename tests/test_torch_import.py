@@ -28,7 +28,7 @@ def test_port_imports_no_jax():
     assert len(mods) >= 20, mods
     code = ('import importlib, sys\n'
             f'for m in {mods!r}: importlib.import_module(m)\n'
-            'import chip_smoke\n'
+            'import chip_smoke, kernel_turns\n'
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'flax' or m.startswith('flax.') "
             "or m == 'retargetvid_tpu' or m.startswith('retargetvid_tpu.'))\n"

@@ -1,11 +1,14 @@
-"""Saliency postprocess: the port's plain version vs JAX, and the CUDA
-kernel vs the plain version (on a card only)."""
+"""Saliency postprocess: the port's plain version vs JAX, the kernel's
+launch plan, and the CUDA kernel vs the plain version (on a card only).
+
+JAX is imported inside the tests that use it, so the ``cuda`` tests run on
+a machine without it: ``python -m pytest tests/test_torch_postprocess.py
+-m cuda --noconftest``.
+"""
 
 import numpy as np
 import pytest
 import torch
-
-import jax.numpy as jnp
 
 torch.set_num_threads(1)
 
@@ -37,6 +40,8 @@ def _report(name, out, ref):
 
 @pytest.mark.parametrize('seed', [0, 1])
 def test_plain_matches_jax_inline(seed):
+    import jax.numpy as jnp
+
     from retargetvid_tpu.ops.pallas_kernels import saliency_postprocess as jpp
     from retargetvid_tpu_torch.kernels.postprocess import (
         saliency_postprocess,
@@ -50,6 +55,8 @@ def test_plain_matches_jax_inline(seed):
 
 
 def test_plain_matches_pallas_interpret():
+    import jax.numpy as jnp
+
     from retargetvid_tpu.ops.pallas_kernels import saliency_postprocess as jpp
     from retargetvid_tpu_torch.kernels.postprocess import (
         saliency_postprocess_reference,
@@ -69,23 +76,77 @@ def test_empty_and_constant_frames():
     assert (out[1] == 255).all()
 
 
+@pytest.mark.parametrize('t, hw, cluster, on_chip', [
+    (96, 140 * 250, 4, True),         # the main path's shape
+    (1, 140 * 250, 8, True),          # one frame
+    (3, 37 * 53, 1, True),            # ragged: hw % 4 != 0
+    (2, 720 * 1280, 8, False),        # more than a cluster holds on chip
+    (5, 32 * 128, 4, True),
+])
+def test_launch_plan(t, hw, cluster, on_chip):
+    """The kernel's launch plan: its CTAs cover every element of every
+    frame exactly once, within the card's limits."""
+    from retargetvid_tpu_torch.kernels.postprocess import launch_plan
+    plan = launch_plan(t, hw)
+    assert (plan.cluster, plan.on_chip) == (cluster, on_chip)
+    assert plan.cluster <= 8 and plan.ctas == t * plan.cluster
+    assert plan.smem_bytes <= 232448
+    assert plan.vec == (hw % 4 == 0)
+    assert plan.slice % 4 == 0            # each slice starts 16-byte aligned
+    bounds = plan.cta_bounds(hw)
+    hits = np.zeros(t * hw, np.int32)
+    for cta in range(plan.ctas):          # as the kernel indexes its grid
+        frame, rank = divmod(cta, plan.cluster)
+        lo, hi = bounds[rank]
+        hits[frame * hw + lo:frame * hw + hi] += 1
+    assert (hits == 1).all()
+
+
+#: The kernel's shapes on the card: the main path's, one frame, ragged
+#: (hw % 4 != 0), larger than a cluster holds on chip, small frames.
+CUDA_SHAPES = [(96, 140, 250), (1, 140, 250), (3, 37, 53), (2, 720, 1280),
+               (5, 32, 128)]
+
+
 @pytest.mark.cuda
-def test_cuda_kernel_matches_plain(cuda_device):
+@pytest.mark.parametrize('shape', CUDA_SHAPES,
+                         ids=['x'.join(map(str, s)) for s in CUDA_SHAPES])
+def test_cuda_kernel_matches_plain(cuda_device, shape):
     from retargetvid_tpu_torch.kernels.postprocess import (
         saliency_postprocess,
         saliency_postprocess_reference,
     )
-    x = torch.from_numpy(_log_maps(3, t=96, h=140, w=250)[0]).to(cuda_device)
-    x[3] = -float('inf')
-    before = saliency_postprocess.launches
+    t, h, w = shape
+    x = torch.from_numpy(_log_maps(3, t=t, h=h, w=w)[0]).to(cuda_device)
+    if t >= 2:
+        x[t - 1] = -float('inf')
+    if t >= 3:
+        x[1] = -3.0
+    inputs = [x]
+    if shape == CUDA_SHAPES[0]:
+        # A contiguous view 4 bytes past a 16-byte boundary.
+        flat = torch.empty(x.numel() + 1, device=cuda_device)
+        inputs.append(flat[1:].view(shape).copy_(x))
+        # Wide ranges for the division: exp over many decades, subnormal
+        # exp values beside normal maxima, maxima above 2^125.
+        rng = np.random.default_rng(4)
+        inputs += [torch.from_numpy((rng.normal(0, 1, shape) * s + o)
+                                    .astype(np.float32)).to(cuda_device)
+                   for s, o in ((20, 0), (1, -87), (3, -95), (30, 60))]
+    for xi in inputs:
+        before = saliency_postprocess.launches
+        out = saliency_postprocess(xi)
+        torch.cuda.synchronize()
+        assert saliency_postprocess.launches == before + 1
+        ref = saliency_postprocess_reference(xi)
+        diff = _report(f'CUDA kernel vs plain {shape}', out.cpu().numpy(),
+                       ref.cpu().numpy())
+        assert diff.max() == 0            # a max is exact in any order
     out = saliency_postprocess(x)
-    torch.cuda.synchronize()
-    assert saliency_postprocess.launches == before + 1
-    ref = saliency_postprocess_reference(x)
-    diff = _report('CUDA kernel vs plain', out.cpu().numpy(),
-                   ref.cpu().numpy())
-    assert diff.max() <= 1
-    assert (out[3] == 0).all()
+    if t >= 2:
+        assert (out[t - 1] == 0).all()
+    if t >= 3:
+        assert (out[1] == 255).all()
     with pytest.raises(TypeError):
         saliency_postprocess(x.double())
     with pytest.raises(ValueError):
