@@ -20,24 +20,40 @@ fails (exit code != 0) if any phase fails:
       launches replayed between two events, ``ms_call`` a single call with
       the host's enqueue in it; ``plain_ms`` is the plain version timed as
       ``ms_device``;
-  (c) main path: ``OneShotClipProgram.run`` on the synthetic 480x360x640
-      clip of ``bench.py`` (30 fps, 1:3 ratio), full-width TransNetV1 and
-      UNISAL with seeded random weights, bf16; warm-up on seed 100, median
-      of seeds 0..3, per-stage CUDA-event times; boxes checked against the
-      frame and the destination size; the kernel's launches counted;
-  (d) the kernel held on the path: the same clip in float32 (TF32 off),
-      once through the kernel and once through the plain postprocess,
-      must give identical boxes; and the port on the card agrees with the
-      port on the CPU (which the test suite holds against the JAX package)
-      on a small clip.
+  (c) main path: ``OneShotClipProgram.run`` with the full-sequence
+      TransNet plan on the synthetic 480x360x640 clip of ``bench.py``
+      (30 fps, 1:3 ratio), full-width TransNetV1 and UNISAL with seeded
+      random weights, bf16; warm-up on seed 100, median of seeds 0..3,
+      per-stage CUDA-event times; boxes checked against the frame and the
+      destination size; the kernel's launches counted (one per clip);
+  (e) windowed plan: the same with the 100/50 TransNet window plan (the
+      program's default); the picks and shots must equal the main path's;
+  (g) multi-ratio: ``dispatch_multi`` serving 1:3 and 3:1 from one pass
+      (full-sequence plan, bf16), timed beside the two ``run`` calls it
+      replaces; one kernel launch per ``dispatch_multi``;
+  (f) two-dispatch: a 12-shot clip (a hard cut every 40 frames, found by a
+      frame-difference stand-in for TransNet) is refused by the one-shot
+      program (12 shots > ``s_pad`` 8) and served by the two-dispatch path
+      of ``bench.py``: the ingest resizes and the real windowed
+      ``TransNetPredictor`` forward (timed; the stand-in's profile drives
+      the rest), host sampling and scenes, ``FusedClipProgram.run``;
+  (d) exactness, in float32 with TF32 off: the main-path clip once through
+      the kernel and once through the plain postprocess gives identical
+      boxes; the windowed one-shot probabilities equal
+      ``TransNetPredictor``'s on the same frames within 1e-5; each ratio of
+      ``dispatch_multi`` gives the boxes of that ratio's ``run``; and the
+      port on the card agrees with the port on the CPU (which the test
+      suite holds against the JAX package) on a small clip, by the
+      full-sequence plan, the window plan and the two-dispatch path.
 
 ``--profile DIR`` adds one ``torch.profiler`` run of a main-path clip
 (device busy time, idle share, kernel launches, the postprocess kernel's own
 device time; the per-operator table goes to ``DIR/profile_main_path.txt``).
 
 Each phase prints one JSON line carrying the card's name and power limit;
-then a line with every kernel's record, the ``nvidia-smi`` name/power-limit
-line, and last ``{"ok": true, "device": {...}}``.  Without a GPU, or
+then a line with every kernel's record (with its launches on each path),
+the ``nvidia-smi`` name/power-limit line, and last ``{"ok": true,
+"device": {...}}``.  Without a GPU, or
 without the repository beside it, it exits with an error and prints no
 result.
 """
@@ -61,9 +77,10 @@ def fail(msg: str):
     sys.exit(1)
 
 
-def make_clip(n_frames=480, h=360, w=640, seed=0):
+def make_clip(n_frames=480, h=360, w=640, seed=0, shot_len=None):
     """The synthetic clip of ``bench.py:make_clip`` (a moving Gaussian blob
-    over seeded noise)."""
+    over seeded noise); with ``shot_len``, the noise is drawn anew every
+    ``shot_len`` frames: a hard cut."""
     rng = np.random.default_rng(seed)
     yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
     frames = np.empty((n_frames, h, w, 3), np.uint8)
@@ -71,6 +88,8 @@ def make_clip(n_frames=480, h=360, w=640, seed=0):
     cy = h * (0.5 + 0.2 * np.sin(np.linspace(0, 8, n_frames)))
     base = rng.integers(0, 60, (h, w, 3)).astype(np.float32)
     for t in range(n_frames):
+        if shot_len and t and t % shot_len == 0:
+            base = rng.integers(0, 60, (h, w, 3)).astype(np.float32)
         blob = 200 * np.exp(-(((yy - cy[t]) ** 2 + (xx - cx[t]) ** 2)
                               / 2500.0))
         frames[t] = np.clip(base + blob[..., None], 0, 255).astype(np.uint8)
@@ -288,6 +307,20 @@ def build_models(seed=0):
     return tn, un
 
 
+def cut_detector():
+    """A TransNet stand-in: probability 1 on a frame whose mean absolute
+    difference from the previous frame exceeds 10 (a hard cut), else 0."""
+    import torch
+
+    class CutDetector(torch.nn.Module):
+        def forward(self, frames):                   # (B, T, 27, 48, 3)
+            x = frames.float()
+            d = (x[:, 1:] - x[:, :-1]).abs().mean(dim=(2, 3, 4))
+            return torch.nn.functional.pad((d > 10.0).float(), (1, 0))
+
+    return CutDetector()
+
+
 def check_boxes(boxes, dest, h, w):
     if boxes.shape != (480, 4):
         fail(f'boxes shape {boxes.shape} != (480, 4)')
@@ -300,55 +333,275 @@ def check_boxes(boxes, dest, h, w):
         fail('a crop box does not have the destination size')
 
 
-def phase_main_path(card, profile_dir=None):
+class Bench:
+    """The bench.py clip, crop parameters, destinations and full-width
+    models shared by the bf16 phases."""
+
+    def __init__(self):
+        import torch
+
+        from retargetvid_tpu_torch.config import sc_init_crop_params
+        from retargetvid_tpu_torch.ops.boxes import calc_dest_size
+        self.h, self.w, self.fps = 360, 640, 30.0
+        self.cp = sc_init_crop_params()
+        self.cp['out_ratio'] = '1:3'
+        self.dests = [calc_dest_size(self.w, self.h, r)
+                      for r in ('1:3', '3:1')]
+        self.dest = self.dests[0]
+        self.kw = dict(fps=self.fps, w_final=self.dest['w_final'],
+                       h_final=self.dest['h_final'])
+        self.tn, self.un = build_models()
+        self.warm = torch.from_numpy(make_clip(seed=100)).cuda()
+        self.clips = [torch.from_numpy(make_clip(seed=s)).cuda()
+                      for s in range(4)]
+        torch.cuda.synchronize()
+
+    def check(self, out, dest=None):
+        check_boxes(out['boxes'], dest or self.dest, self.h, self.w)
+        if not np.isfinite(out['dxs'][:480]).all():
+            fail('non-finite smoothed centers')
+
+
+def drive(run, warm, clips, program=None):
+    """``run`` on the warm-up clip, then on each clip with the kernel's
+    launch count set to 0 just before and read just after: per-clip ms,
+    outputs, launches and, with ``program``, its median stage times."""
     import torch
 
-    from retargetvid_tpu_torch.config import sc_init_crop_params
     from retargetvid_tpu_torch.kernels.postprocess import saliency_postprocess
-    from retargetvid_tpu_torch.ops.boxes import calc_dest_size
-    from retargetvid_tpu_torch.pipeline.oneshot import (
-        OneShotClipProgram,
-        StageTimer,
-    )
-    h, w, fps = 360, 640, 30.0
-    cp = sc_init_crop_params()
-    cp['out_ratio'] = '1:3'
-    dest = calc_dest_size(w, h, cp['out_ratio'])
-    tn, un = build_models()
-    program = OneShotClipProgram(tn, un, dtype=torch.bfloat16)
-    kw = dict(fps=fps, w_final=dest['w_final'], h_final=dest['h_final'])
-
-    warm = torch.from_numpy(make_clip(seed=100)).cuda()
-    clips = [torch.from_numpy(make_clip(seed=s)).cuda() for s in range(4)]
-    torch.cuda.synchronize()
-    program.run(warm, cp, **kw)
-
+    from retargetvid_tpu_torch.pipeline.oneshot import StageTimer
+    run(warm)
     timer = StageTimer()
-    program.timer = timer
+    if program is not None:
+        program.timer = timer
     saliency_postprocess.launches = 0
     times, outs = [], []
     for clip in clips:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        outs.append(program.run(clip, cp, **kw))
+        outs.append(run(clip))
         times.append((time.perf_counter() - t0) * 1e3)
     launches = saliency_postprocess.launches
-    program.timer = None
-    if launches < 1:
-        fail('the main path never launched the saliency_postprocess kernel')
-    for out in outs:
-        check_boxes(out['boxes'], dest, h, w)
-        if not np.isfinite(out['dxs'][:480]).all():
-            fail('non-finite smoothed centers')
+    if program is not None:
+        program.timer = None
     stages = {k: statistics.median(v) for k, v in timer.times_ms().items()}
+    return times, outs, launches, stages
+
+
+def expect_launches(path, launches, n):
+    if launches != n:
+        fail(f'{path}: {launches} saliency_postprocess launches for {n} '
+             f'clips (expected one per clip)')
+
+
+def phase_main_path(card, bench, profile_dir=None):
+    import torch
+
+    from retargetvid_tpu_torch.pipeline.oneshot import OneShotClipProgram
+    program = OneShotClipProgram(bench.tn, bench.un, dtype=torch.bfloat16,
+                                 tn_fullseq=True)
+    times, outs, launches, stages = drive(
+        lambda c: program.run(c, bench.cp, **bench.kw), bench.warm,
+        bench.clips, program)
+    expect_launches('main path', launches, len(bench.clips))
+    for out in outs:
+        bench.check(out)
     med = statistics.median(times)
-    emit(card, phase='main_path', clip=[480, h, w], dtype='bfloat16',
-         per_clip_ms=times, median_ms=med, frames_per_s=480 / med * 1e3,
+    emit(card, phase='main_path', clip=[480, bench.h, bench.w],
+         dtype='bfloat16', tn_plan='fullseq', per_clip_ms=times,
+         median_ms=med, frames_per_s=480 / med * 1e3,
          fc_sel=[o['fc_sel'] for o in outs],
          n_segments=[o['n_segments'] for o in outs],
          stage_median_ms=stages, postprocess_launches=launches)
     if profile_dir is not None:
-        profile_clip(card, program, clips[0], cp, kw, Path(profile_dir))
+        profile_clip(card, program, bench.clips[0], bench.cp, bench.kw,
+                     Path(profile_dir))
+    return program, outs, stages, launches
+
+
+def phase_windowed(card, bench, main_outs, main_stages):
+    import torch
+
+    from retargetvid_tpu_torch.pipeline.oneshot import OneShotClipProgram
+    program = OneShotClipProgram(bench.tn, bench.un, dtype=torch.bfloat16)
+    if program.tn_fullseq:
+        fail('the one-shot program does not default to the window plan')
+    times, outs, launches, stages = drive(
+        lambda c: program.run(c, bench.cp, **bench.kw), bench.warm,
+        bench.clips, program)
+    expect_launches('windowed plan', launches, len(bench.clips))
+    for out, main in zip(outs, main_outs):
+        bench.check(out)
+        if (out['fc_sel'], out['n_segments']) != (main['fc_sel'],
+                                                  main['n_segments']):
+            fail('windowed plan: picks or shots differ from the '
+                 'full-sequence plan on the same clip')
+    med = statistics.median(times)
+    emit(card, phase='windowed_plan', clip=[480, bench.h, bench.w],
+         dtype='bfloat16', tn_plan='windowed', per_clip_ms=times,
+         median_ms=med, frames_per_s=480 / med * 1e3,
+         fc_sel=[o['fc_sel'] for o in outs],
+         n_segments=[o['n_segments'] for o in outs],
+         stage_median_ms=stages,
+         transnet_stage_windowed_over_fullseq=(stages['transnet']
+                                               / main_stages['transnet']),
+         postprocess_launches=launches)
+    return launches
+
+
+def phase_multi_ratio(card, bench, program):
+    """``dispatch_multi`` for both ratios and the two ``run`` calls it
+    replaces, in turns on each clip (multi first on even clips, runs first
+    on odd ones); the launch count is set to 0 before each and read after."""
+    import torch
+
+    from retargetvid_tpu_torch.kernels.postprocess import saliency_postprocess
+    from retargetvid_tpu_torch.pipeline.oneshot import StageTimer
+    dests = [(d['w_final'], d['h_final']) for d in bench.dests]
+    kw = dict(fps=bench.fps)
+
+    def multi(clip):
+        return program.collect_multi(program.dispatch_multi(
+            clip, bench.cp, dests=dests, **kw))
+
+    def runs(clip):
+        return [program.run(clip, bench.cp, w_final=wf, h_final=hf, **kw)
+                for wf, hf in dests]
+
+    multi(bench.warm)
+    runs(bench.warm)
+    timer = StageTimer()
+    ms = {'multi': [], 'runs': []}
+    outs = {'multi': [], 'runs': []}
+    launches = {'multi': 0, 'runs': 0}
+    for i, clip in enumerate(bench.clips):
+        order = ('multi', 'runs') if i % 2 == 0 else ('runs', 'multi')
+        for name in order:
+            program.timer = timer if name == 'multi' else None
+            torch.cuda.synchronize()
+            saliency_postprocess.launches = 0
+            t0 = time.perf_counter()
+            outs[name].append((multi if name == 'multi' else runs)(clip))
+            ms[name].append((time.perf_counter() - t0) * 1e3)
+            launches[name] += saliency_postprocess.launches
+    program.timer = None
+    expect_launches('multi-ratio', launches['multi'], len(bench.clips))
+    expect_launches('two runs', launches['runs'], 2 * len(bench.clips))
+    same = 0
+    for per_ratio, per_run in zip(outs['multi'], outs['runs']):
+        for out, single, dest in zip(per_ratio, per_run, bench.dests):
+            bench.check(out, dest)
+            bench.check(single, dest)
+            same += int(np.array_equal(out['boxes'], single['boxes']))
+    med, run_med = (statistics.median(ms['multi']),
+                    statistics.median(ms['runs']))
+    emit(card, phase='multi_ratio', clip=[480, bench.h, bench.w],
+         dtype='bfloat16', tn_plan='fullseq', ratios=['1:3', '3:1'],
+         per_clip_ms=ms['multi'], median_ms=med,
+         stage_median_ms={k: statistics.median(v)
+                          for k, v in timer.times_ms().items()},
+         two_runs_per_clip_ms=ms['runs'], two_runs_median_ms=run_med,
+         multi_over_two_runs=med / run_med,
+         bf16_ratio_boxes_equal_to_run=f'{same} of {2 * len(bench.clips)}',
+         postprocess_launches=launches['multi'])
+    return launches['multi']
+
+
+def two_dispatch(clip, cp, kw, resize, fused, profile, real=None):
+    """The two-dispatch path of ``bench.py``: resizes (+ the real TransNet
+    forward, timed but unused, as bench.py does), the probabilities of the
+    ``profile`` predictor (made before the clock starts), host sampling and
+    scenes, ``FusedClipProgram.run``.  Returns the outputs, the shot count
+    and (ingest, host, fused) ms."""
+    import torch
+
+    from retargetvid_tpu_torch.ops.scenes import (
+        fix_scene_bounds,
+        predictions_to_scenes,
+        scenes_to_selected,
+    )
+    from retargetvid_tpu_torch.pipeline.ingest import (
+        TRANS_THRESHOLD,
+        sample_frames,
+    )
+    fc = int(clip.shape[0])
+    with torch.inference_mode():
+        probs = profile(resize(clip)[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        tn_frames, sal = resize(clip)
+    if real is not None:
+        real(tn_frames)
+    t1 = time.perf_counter()
+    selected, true_inds, m2o = sample_frames(fc, probs, cp['skip'], fc)
+    seg = fix_scene_bounds(predictions_to_scenes(probs, TRANS_THRESHOLD), fc)
+    seg_sel = scenes_to_selected(seg, m2o)
+    t2 = time.perf_counter()
+    out = fused.run(sal, selected, true_inds, seg, seg_sel, cp, fc=fc, **kw)
+    t3 = time.perf_counter()
+    return out, len(seg), [(t1 - t0) * 1e3, (t2 - t1) * 1e3,
+                           (t3 - t2) * 1e3]
+
+
+def phase_two_dispatch(card, bench):
+    import torch
+
+    from retargetvid_tpu_torch.models.transnet import TransNetPredictor
+    from retargetvid_tpu_torch.pipeline.fused import FusedClipProgram
+    from retargetvid_tpu_torch.pipeline.ingest import _resize_kernel, sal_dims
+    from retargetvid_tpu_torch.kernels.postprocess import saliency_postprocess
+    from retargetvid_tpu_torch.pipeline.oneshot import (
+        OneShotClipProgram,
+        StageTimer,
+    )
+    h, w = bench.h, bench.w
+    standin = cut_detector()
+    warm = torch.from_numpy(make_clip(seed=100, shot_len=40)).cuda()
+    clips = [torch.from_numpy(make_clip(seed=s, shot_len=40)).cuda()
+             for s in range(4)]
+    try:
+        OneShotClipProgram(standin, bench.un, dtype=torch.bfloat16).run(
+            warm, bench.cp, **bench.kw)
+    except ValueError as exc:
+        refusal = str(exc)
+    else:
+        fail('the one-shot program served a 12-shot clip')
+
+    resize = _resize_kernel(h, w, *sal_dims(w, h, bench.cp['max_input_d']))
+    profile = TransNetPredictor(standin)
+    real = TransNetPredictor(bench.tn)            # window plan, bf16
+    fused = FusedClipProgram(bench.un, dtype=torch.bfloat16)
+    kw = dict(bench.kw, h_orig=h, w_orig=w)
+    two_dispatch(warm, bench.cp, kw, resize, fused, profile, real)
+    timer = StageTimer()
+    fused.timer = timer
+    saliency_postprocess.launches = 0
+    outs, shots, parts = [], [], []
+    for clip in clips:
+        out, n_seg, ms = two_dispatch(clip, bench.cp, kw, resize, fused,
+                                      profile, real)
+        outs.append(out)
+        shots.append(n_seg)
+        parts.append(ms)
+    launches = saliency_postprocess.launches
+    fused.timer = None
+    expect_launches('two-dispatch', launches, len(clips))
+    if shots != [12] * len(clips):
+        fail(f'two-dispatch: {shots} shots, expected 12 per clip')
+    for out in outs:
+        bench.check(out)
+    stages = {k: statistics.median(v) for k, v in timer.times_ms().items()}
+    names = ('ingest_and_transnet', 'host_sampling', 'fused')
+    per_part = {n: [p[i] for p in parts] for i, n in enumerate(names)}
+    totals = [sum(p) for p in parts]
+    emit(card, phase='two_dispatch', clip=[480, h, w], dtype='bfloat16',
+         tn_plan='windowed', shots=shots, refused_by_oneshot=refusal,
+         fc_sel=[int(len(o['dx'])) for o in outs],
+         per_clip_ms=totals, median_ms=statistics.median(totals),
+         part_median_ms={n: statistics.median(v)
+                         for n, v in per_part.items()},
+         fused_stage_median_ms=stages, postprocess_launches=launches)
     return launches
 
 
@@ -405,7 +658,24 @@ def plain_postprocess():
         fused.saliency_postprocess = saved
 
 
+@contextlib.contextmanager
+def exact_float32():
+    """cuDNN and cuBLAS without TF32, restored afterwards."""
+    import torch
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+
+
 def small_clip(fc=48, h=72, w=128):
+    """A blob that moves, then stops on a brighter background (a cut at
+    frame 24 for the stand-in detector)."""
     yy, xx = np.mgrid[0:h, 0:w]
     frames = np.zeros((fc, h, w, 3), np.uint8)
     for t in range(fc):
@@ -417,33 +687,75 @@ def small_clip(fc=48, h=72, w=128):
     return frames
 
 
-def phase_kernel_on_path(card):
+def small_clip_paths(device, frames, cp):
+    """The small clip through the full-sequence plan, the window plan and
+    the two-dispatch path (driven by the stand-in's cut) on ``device``,
+    float32, with narrow models made from the same seeds."""
+    import torch
+
+    from retargetvid_tpu_torch.models.init import seeded_init_
+    from retargetvid_tpu_torch.models.transnet import (
+        TransNetPredictor,
+        TransNetV1,
+    )
+    from retargetvid_tpu_torch.models.unisal import UNISAL
+    from retargetvid_tpu_torch.ops.boxes import calc_dest_size
+    from retargetvid_tpu_torch.pipeline.fused import FusedClipProgram
+    from retargetvid_tpu_torch.pipeline.ingest import _resize_kernel, sal_dims
+    from retargetvid_tpu_torch.pipeline.oneshot import OneShotClipProgram
+    h, w = frames.shape[1:3]
+    dest = calc_dest_size(w, h, cp['out_ratio'])
+    kw = dict(fps=30.0, w_final=dest['w_final'], h_final=dest['h_final'])
+    tiny = dict(cnn_widen_factor=0.25, cnn_last_channel=None,
+                rnn_input_channels=32, smoothing_ksize=11, smoothing_rank=4)
+    tn = seeded_init_(TransNetV1(), 0)
+    with torch.no_grad():
+        tn.dense2.bias.copy_(torch.tensor([5.0, -5.0]))
+    un = seeded_init_(UNISAL(**tiny), 1)
+    outs = {}
+    for plan, fullseq in (('fullseq', True), ('windowed', False)):
+        outs[plan] = OneShotClipProgram(
+            tn, un, dtype=torch.float32, tn_fullseq=fullseq,
+            device=device).run(frames, cp, **kw)
+    resize = _resize_kernel(h, w, *sal_dims(w, h, cp['max_input_d']))
+    profile = TransNetPredictor(cut_detector(), device=device)
+    fused = FusedClipProgram(un, dtype=torch.float32, device=device)
+    out, n_seg, _ = two_dispatch(torch.from_numpy(frames).to(device), cp,
+                                 dict(kw, h_orig=h, w_orig=w), resize, fused,
+                                 profile)
+    out['fc_sel'], out['n_segments'] = len(out['dx']), n_seg
+    outs['two_dispatch'] = out
+    return outs
+
+
+def phase_exact(card):
     import torch
 
     from retargetvid_tpu_torch.config import sc_init_crop_params
     from retargetvid_tpu_torch.kernels.postprocess import saliency_postprocess
-    from retargetvid_tpu_torch.models.init import seeded_init_
-    from retargetvid_tpu_torch.models.transnet import TransNetV1
-    from retargetvid_tpu_torch.models.unisal import UNISAL
+    from retargetvid_tpu_torch.models.transnet import TransNetPredictor
     from retargetvid_tpu_torch.ops.boxes import calc_dest_size
+    from retargetvid_tpu_torch.pipeline.ingest import _resize_kernel, sal_dims
     from retargetvid_tpu_torch.pipeline.oneshot import OneShotClipProgram
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     cp = sc_init_crop_params()
     cp['out_ratio'] = '1:3'
-
-    # Full clip, float32: kernel vs plain postprocess.
-    dest = calc_dest_size(640, 360, cp['out_ratio'])
-    kw = dict(fps=30.0, w_final=dest['w_final'], h_final=dest['h_final'])
-    tn, un = build_models()
-    program = OneShotClipProgram(tn, un, dtype=torch.float32)
     clip = torch.from_numpy(make_clip(seed=0)).cuda()
+    h, w = int(clip.shape[1]), int(clip.shape[2])
+    dests = [calc_dest_size(w, h, r) for r in ('1:3', '3:1')]
+    kw = dict(fps=30.0, w_final=dests[0]['w_final'],
+              h_final=dests[0]['h_final'])
+    tn, un = build_models()
+    fullseq = OneShotClipProgram(tn, un, dtype=torch.float32,
+                                 tn_fullseq=True)
+    windowed = OneShotClipProgram(tn, un, dtype=torch.float32)
+
+    # Kernel vs plain postprocess on the main path.
     before = saliency_postprocess.launches
-    with_kernel = program.run(clip, cp, **kw)
+    with_kernel = fullseq.run(clip, cp, **kw)
     if saliency_postprocess.launches != before + 1:
         fail('the float32 run did not launch the kernel exactly once')
     with plain_postprocess():
-        with_plain = program.run(clip, cp, **kw)
+        with_plain = fullseq.run(clip, cp, **kw)
     if saliency_postprocess.launches != before + 1:
         fail('the plain run launched the kernel')
     n_box_diff = int((with_kernel['boxes'] != with_plain['boxes']).any(1)
@@ -452,33 +764,52 @@ def phase_kernel_on_path(card):
         fail(f'kernel and plain postprocess give different boxes on '
              f'{n_box_diff} frames')
 
+    # The one-shot window plan vs TransNetPredictor on the same frames.
+    one = windowed.run(clip, cp, **kw)
+    resize = _resize_kernel(h, w, *sal_dims(w, h, cp['max_input_d']))
+    with torch.inference_mode():
+        tn_frames = resize(clip)[0]
+    probs = TransNetPredictor(tn)(tn_frames)
+    probs_err = float(np.abs(one['probs'] - probs).max())
+    if probs_err > 1e-5:
+        fail(f'windowed one-shot probs differ from TransNetPredictor by '
+             f'{probs_err}')
+
+    # dispatch_multi vs each ratio's run.
+    before = saliency_postprocess.launches
+    multi = fullseq.collect_multi(fullseq.dispatch_multi(
+        clip, cp, fps=30.0,
+        dests=[(d['w_final'], d['h_final']) for d in dests]))
+    if saliency_postprocess.launches != before + 1:
+        fail('dispatch_multi did not launch the kernel exactly once')
+    for out, dest in zip(multi, dests):
+        single = fullseq.run(clip, cp, fps=30.0, w_final=dest['w_final'],
+                             h_final=dest['h_final'])
+        if not np.array_equal(out['boxes'], single['boxes']):
+            fail(f'dispatch_multi boxes differ from run at '
+                 f'{dest["w_final"]}x{dest["h_final"]}')
+
     # Small clip: the port on the card vs the port on the CPU.
-    fc, h, w = 48, 72, 128
-    frames = small_clip(fc, h, w)
-    dest_s = calc_dest_size(w, h, cp['out_ratio'])
-    kw_s = dict(fps=30.0, w_final=dest_s['w_final'],
-                h_final=dest_s['h_final'])
-    tiny = dict(cnn_widen_factor=0.25, cnn_last_channel=None,
-                rnn_input_channels=32, smoothing_ksize=11, smoothing_rank=4)
-    outs = []
-    for device in ('cuda', 'cpu'):
-        tn_s = seeded_init_(TransNetV1(), 0)
-        with torch.no_grad():
-            tn_s.dense2.bias.copy_(torch.tensor([5.0, -5.0]))
-        un_s = seeded_init_(UNISAL(**tiny), 1)
-        outs.append(OneShotClipProgram(tn_s, un_s, dtype=torch.float32,
-                                       device=device).run(frames, cp,
-                                                          **kw_s))
-    gpu, cpu = outs
-    if (gpu['fc_sel'], gpu['n_segments']) != (cpu['fc_sel'],
-                                              cpu['n_segments']):
-        fail('small clip: sampling differs between card and CPU')
-    box_err = int(np.abs(gpu['boxes'] - cpu['boxes']).max())
-    if box_err > 1:
-        fail(f'small clip: card and CPU boxes differ by {box_err} px')
-    emit(card, phase='kernel_on_path', dtype='float32', tf32=False,
-         boxes_differing_frames=n_box_diff,
+    frames = small_clip()
+    gpu, cpu = (small_clip_paths(d, frames, cp) for d in ('cuda', 'cpu'))
+    box_err = {}
+    for path in gpu:
+        if (gpu[path]['fc_sel'], gpu[path]['n_segments']) != (
+                cpu[path]['fc_sel'], cpu[path]['n_segments']):
+            fail(f'small clip, {path}: sampling differs between card and '
+                 f'CPU')
+        box_err[path] = int(np.abs(gpu[path]['boxes']
+                                   - cpu[path]['boxes']).max())
+        if box_err[path] > 1:
+            fail(f'small clip, {path}: card and CPU boxes differ by '
+                 f'{box_err[path]} px')
+    if gpu['two_dispatch']['n_segments'] != 2:
+        fail('small clip: the stand-in did not find the cut')
+    emit(card, phase='exact_float32', dtype='float32', tf32=False,
+         kernel_vs_plain_boxes_differing_frames=n_box_diff,
          fc_sel=with_kernel['fc_sel'], n_segments=with_kernel['n_segments'],
+         windowed_probs_vs_predictor_max_abs=probs_err,
+         multi_ratio_boxes_equal_to_run=True,
          small_clip_card_vs_cpu_max_box_px=box_err, tolerance_px=1)
 
 
@@ -501,8 +832,19 @@ def main():
     card = card_line()
     phase_build(card)
     record = phase_kernel(card)
-    record['launches'] = phase_main_path(card, args.profile)
-    phase_kernel_on_path(card)
+    bench = Bench()
+    program, main_outs, main_stages, launches = phase_main_path(
+        card, bench, args.profile)
+    record['launches'] = launches
+    record['launches_by_path'] = {
+        'main_path': launches,
+        'windowed_plan': phase_windowed(card, bench, main_outs,
+                                        main_stages),
+        'multi_ratio': phase_multi_ratio(card, bench, program),
+        'two_dispatch': phase_two_dispatch(card, bench),
+    }
+    with exact_float32():
+        phase_exact(card)
     if 'jax' in sys.modules:
         fail('jax was imported')
     print(json.dumps({'kernels': [record]}))

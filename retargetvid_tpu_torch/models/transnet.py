@@ -12,15 +12,31 @@ The JAX package folds time into the batch and runs three 2-D convs per cell
 ``padding=(d, 1, 1)`` is the same function.  The JAX model flattens each
 frame's features in (h, w, c) order, so the port permutes to channels-last
 before the flatten and ``dense1`` keeps the JAX row order.
+
+Clip-level plans (port of ``TransNetPredictor``, ``IngestShotProgram`` and
+``predict_video_windows``): the reference's 100-frame windows with stride
+50 over the edge-padded clip, keeping each window's middle [25:75)
+(``transnetv1_handler.py:100-130``), run as one batched forward; or one
+forward over the whole edge-padded clip (``fullseq``).  Windows are built
+by reshaping the clamped-gather of the padded clip into ``stride``-frame
+blocks and concatenating ``window // stride`` shifted block views, as the
+JAX package does.  Each window's convs zero-pad at the window's own edges,
+so the windowed plan is the reference's, and a window spanning the whole
+clip computes exactly what ``fullseq`` computes.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 from torch import nn
 from torch.nn import functional as F
 
-__all__ = ["TransNetV1", "DDCNN", "INPUT_HEIGHT", "INPUT_WIDTH"]
+from retargetvid_tpu_torch.device import resolve_device
+
+__all__ = ["TransNetV1", "DDCNN", "INPUT_HEIGHT", "INPUT_WIDTH",
+           "window_forward", "fullseq_forward", "predict_video_windows",
+           "TransNetPredictor", "IngestShotProgram"]
 
 INPUT_HEIGHT = 27
 INPUT_WIDTH = 48
@@ -78,3 +94,144 @@ class TransNetV1(nn.Module):
         x = F.relu(self.dense1(x))
         logits = self.dense2(x)
         return torch.softmax(logits.float(), dim=-1)[..., 1]
+
+
+def window_forward(model: nn.Module, frames: torch.Tensor, n: int, cap: int,
+                   *, window: int = 100, stride: int = 50,
+                   keep: tuple = (25, 75)) -> torch.Tensor:
+    """The window plan over the first ``n`` of ``frames`` (T, 27, 48, 3):
+    ``cap`` >= ``n`` probabilities, the first ``n`` of them the clip's.
+
+    The clip is edge-padded by a clamped gather (frame ``-keep[0] + i``
+    clamped to [0, n-1]) up to a whole number of ``stride`` blocks that
+    holds ``cap`` frames plus the window margins; window i is blocks
+    [i, i + window // stride).  So ``cap`` sets the window count (the JAX
+    predictor pads N to a multiple of 64, the one-shot body does not), and
+    the windows over the first ``n`` frames are the same either way.
+    """
+    m = window // stride
+    kk = -(-(cap + window - stride + keep[0]) // stride)
+    n_w = kk - m + 1
+    src = torch.clamp(torch.arange(kk * stride, device=frames.device)
+                      - keep[0], 0, n - 1)
+    blocks = frames[src].reshape(kk, stride, *frames.shape[1:])
+    windows = torch.cat([blocks[off:off + n_w] for off in range(m)], dim=1)
+    probs = model(windows)                                  # (n_w, window)
+    return probs[:, keep[0]:keep[1]].reshape(-1)[:cap]
+
+
+def fullseq_forward(model: nn.Module, frames: torch.Tensor, n: int, cap: int,
+                    *, keep: tuple = (25, 75)) -> torch.Tensor:
+    """One forward over the first ``n`` of ``frames`` edge-padded by
+    ``keep[0]`` frames each side (clamped gather): ``cap`` probabilities."""
+    src = torch.clamp(torch.arange(cap + 2 * keep[0], device=frames.device)
+                      - keep[0], 0, n - 1)
+    return model(frames[src][None])[0][keep[0]:keep[0] + cap]
+
+
+def predict_video_windows(apply_fn, frames, window: int = 100,
+                          stride: int = 50, keep: tuple = (25, 75),
+                          batch_windows: int = 64) -> np.ndarray:
+    """The reference's window plan, eagerly: (N, 27, 48, 3) uint8 ->
+    (N,) float32 numpy probabilities.
+
+    Pads 25 edge frames in front and 25..74 behind so the padded clip is a
+    whole number of ``stride`` blocks, pads the window count to a multiple
+    of 8 (of ``batch_windows`` beyond it) with zero windows, and calls
+    ``apply_fn`` (B, T, 27, 48, 3) -> (B, T) once per ``batch_windows``
+    windows.  The reference for :class:`TransNetPredictor`.
+    """
+    if window % stride:
+        raise ValueError('window must be a multiple of stride')
+    frames = torch.as_tensor(frames)
+    n = len(frames)
+    rem = n % stride
+    pad_end = keep[0] + stride - (rem if rem != 0 else stride)
+    padded = torch.cat([frames[:1].repeat_interleave(keep[0], 0), frames,
+                        frames[-1:].repeat_interleave(pad_end, 0)])
+    m = window // stride
+    blocks = padded.reshape(-1, stride, *padded.shape[1:])
+    n_w = blocks.shape[0] - m + 1
+    n_w_pad = (min(-(-n_w // 8) * 8, batch_windows) if n_w <= batch_windows
+               else -(-n_w // batch_windows) * batch_windows)
+    if n_w_pad > n_w:
+        blocks = torch.cat([blocks, blocks.new_zeros(
+            (n_w_pad - n_w,) + tuple(blocks.shape[1:]))])
+    windows = torch.cat([blocks[off:off + n_w_pad] for off in range(m)],
+                        dim=1)
+    probs = torch.cat([apply_fn(windows[i:i + batch_windows])
+                       [:, keep[0]:keep[1]]
+                       for i in range(0, n_w_pad, batch_windows)])
+    return probs[:n_w].reshape(-1)[:n].detach().float().cpu().numpy()
+
+
+def _pad64(n: int) -> int:
+    return -(-n // 64) * 64
+
+
+class TransNetPredictor:
+    """Whole-clip shot probabilities: (N, 27, 48, 3) uint8 -> (N,) numpy.
+
+    The window plan (default) or ``fullseq``: one forward over the
+    edge-padded clip, about half the window plan's compute, equal to it
+    only where no window edge truncates the ~48-frame receptive field.
+    ``N`` is padded up to a multiple of 64 for the window count, as in the
+    JAX predictor; the padding is never read.  The model computes in its
+    parameters' dtype.  ``device=None`` means the GPU.
+    """
+
+    def __init__(self, model: nn.Module, *, window: int = 100,
+                 stride: int = 50, keep: tuple = (25, 75),
+                 fullseq: bool = False, device=None):
+        if window % stride:
+            raise ValueError('window must be a multiple of stride')
+        self.device = resolve_device(device)
+        self.model = model.to(self.device).eval()
+        self.window = window
+        self.stride = stride
+        self.keep = keep
+        self.fullseq = fullseq
+
+    def __call__(self, frames) -> np.ndarray:
+        frames = torch.as_tensor(frames).to(self.device)
+        n = int(frames.shape[0])
+        with torch.inference_mode():
+            if self.fullseq:
+                p = fullseq_forward(self.model, frames, n, _pad64(n),
+                                    keep=self.keep)
+            else:
+                p = window_forward(self.model, frames, n, _pad64(n),
+                                   window=self.window, stride=self.stride,
+                                   keep=self.keep)
+        return p[:n].float().cpu().numpy()
+
+
+class IngestShotProgram:
+    """Raw frames -> (saliency-resolution frames, shot probabilities).
+
+    The ingest's two resizes (``pipeline.ingest._resize_kernel``) and the
+    TransNet window plan of :class:`TransNetPredictor`.  The saliency
+    frames stay on the device for ``pipeline.fused.FusedClipProgram``; only
+    the (N,) probabilities go to the host, where the sampling rule needs
+    them.  ``device=None`` means the GPU.
+    """
+
+    def __init__(self, model: nn.Module, *, sal_hw, window: int = 100,
+                 stride: int = 50, keep: tuple = (25, 75), device=None):
+        self.predictor = TransNetPredictor(model, window=window,
+                                           stride=stride, keep=keep,
+                                           device=device)
+        self.device = self.predictor.device
+        self.sal_hw = tuple(sal_hw)
+
+    def __call__(self, frames):
+        """(N, H, W, 3) uint8 -> (device (N, sal_h, sal_w, 3) uint8,
+        numpy (N,) float32)."""
+        from retargetvid_tpu_torch.pipeline.ingest import _resize_kernel
+
+        frames = torch.as_tensor(frames).to(self.device)
+        resize = _resize_kernel(int(frames.shape[1]), int(frames.shape[2]),
+                                *self.sal_hw)
+        with torch.inference_mode():
+            tn, sal = resize(frames)
+        return sal, self.predictor(tn)

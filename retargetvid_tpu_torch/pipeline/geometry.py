@@ -14,6 +14,11 @@ cut-boundary averaging (frame i's *filtered* map feeds frame i+1's filter
 input near shot cuts) is reproduced by recomputing exactly the affected
 frames in order, up to the clip's real redo count.
 
+Only the last step, the crop boxes, reads the output size: multi-ratio
+serving runs :func:`geometry_series` once and :func:`geometry_boxes` per
+ratio.  (The chain syncs with the host for its loop bounds, so it is not
+vmapped over ratios as the JAX package does.)
+
 Not ported (``NotImplementedError``): ``resize_factor != 1``,
 ``focus_stability``, ``tpu_adaptive_link``, ``shift_time > 0`` and
 Savitzky-Golay smoothing.
@@ -35,8 +40,8 @@ from retargetvid_tpu_torch.ops.morphology import close as morph_close
 from retargetvid_tpu_torch.ops.temporal import fill_empty_centers
 from retargetvid_tpu_torch.ops.threshold import threshold_saliency
 
-__all__ = ["GeometryConfig", "geometry_pipeline", "bucket_size",
-           "seg_bucket_size"]
+__all__ = ["GeometryConfig", "geometry_pipeline", "geometry_series",
+           "geometry_boxes", "bucket_size", "seg_bucket_size"]
 
 _BUCKETS = (32, 48, 64, 96, 128, 160, 192, 256, 320, 384, 512, 640, 768,
             1024, 1536, 2048, 3072, 4096, 6144, 8192)
@@ -188,21 +193,21 @@ def _cut_boundary_fixup(raw: torch.Tensor, pass1: torch.Tensor,
     return acc
 
 
-def geometry_pipeline(smaps, sel_mask, fc_sel, true_inds,
-                      seg_starts, seg_ends, seg_sel_starts, seg_sel_ends,
-                      n_segments, fc, border_t, border_b, border_l, border_r,
-                      *, cfg: GeometryConfig, fps: float, h_orig: int,
-                      w_orig: int, w_final, h_final, t_out: int) -> dict:
-    """The geometry chain over padded inputs; see the module docstring.
+def geometry_series(smaps, sel_mask, fc_sel, true_inds,
+                    seg_starts, seg_ends, seg_sel_starts, seg_sel_ends,
+                    n_segments, *, cfg: GeometryConfig, fps: float,
+                    t_out: int) -> dict:
+    """Steps 1-7 of the chain, which no output ratio enters: threshold,
+    clustering filter and cut-boundary redo, centers, empty-center fill,
+    per-segment interpolation and smoothing.
 
     ``smaps`` (T_sel_pad, H, W); ``sel_mask``/``true_inds`` (T_sel_pad,);
     segment arrays (S,); ``fc_sel``/``n_segments`` live counts (ints or
-    0-d tensors).  Returns ``boxes`` (t_out, 4) int32 and the series.
+    0-d tensors).  Returns the filtered maps ``sm`` and the series.
     """
-    del fc                                  # carried for signature parity
     cfg.check_ported()
     smaps = smaps.to(torch.float32)
-    t_sel_pad, h, w = smaps.shape
+    t_sel_pad = smaps.shape[0]
     dev = smaps.device
     fc_sel = int(fc_sel)
     n_segments = int(n_segments)
@@ -249,15 +254,42 @@ def geometry_pipeline(smaps, sel_mask, fc_sel, true_inds,
         degree=cfg.loess_degree, lp_filt=cfg.lp_filt,
         lp_cutoff=cfg.lp_cutoff, lp_order=cfg.lp_order, max_len=max_len)
 
-    boxes, fbb_w, fbb_h = compute_crop_boxes(
-        dxs, dys, w_orig=w_orig, h_orig=h_orig, w_process=w, h_process=h,
-        w_final=w_final, h_final=h_final, border_t=border_t,
-        border_b=border_b, border_l=border_l, border_r=border_r)
-
     return {
-        'boxes': boxes, 'fbb_w': fbb_w, 'fbb_h': fbb_h,
         'smaps_filtered': torch.clamp(sm, 0, 255).to(torch.uint8),
         'dx': cx, 'dy': cy, 'jumps': jumps,
         'dxi': dxi, 'dyi': dyi, 'dxs': dxs, 'dys': dys,
         'dxl': dxl, 'dyl': dyl,
     }
+
+
+def geometry_boxes(series: dict, border_t, border_b, border_l, border_r,
+                   *, h_orig: int, w_orig: int, h_process: int,
+                   w_process: int, w_final, h_final) -> dict:
+    """Step 8, the only one an output ratio enters: crop boxes of the
+    smoothed series for one (``w_final``, ``h_final``)."""
+    boxes, fbb_w, fbb_h = compute_crop_boxes(
+        series['dxs'], series['dys'], w_orig=w_orig, h_orig=h_orig,
+        w_process=w_process, h_process=h_process, w_final=w_final,
+        h_final=h_final, border_t=border_t, border_b=border_b,
+        border_l=border_l, border_r=border_r)
+    return {'boxes': boxes, 'fbb_w': fbb_w, 'fbb_h': fbb_h}
+
+
+def geometry_pipeline(smaps, sel_mask, fc_sel, true_inds,
+                      seg_starts, seg_ends, seg_sel_starts, seg_sel_ends,
+                      n_segments, fc, border_t, border_b, border_l, border_r,
+                      *, cfg: GeometryConfig, fps: float, h_orig: int,
+                      w_orig: int, w_final, h_final, t_out: int) -> dict:
+    """The geometry chain over padded inputs (see the module docstring):
+    :func:`geometry_series` then :func:`geometry_boxes`.  Returns ``boxes``
+    (t_out, 4) int32 and the series."""
+    del fc                                  # carried for signature parity
+    series = geometry_series(
+        smaps, sel_mask, fc_sel, true_inds, seg_starts, seg_ends,
+        seg_sel_starts, seg_sel_ends, n_segments, cfg=cfg, fps=fps,
+        t_out=t_out)
+    h, w = smaps.shape[1:]
+    return {**geometry_boxes(series, border_t, border_b, border_l, border_r,
+                             h_orig=h_orig, w_orig=w_orig, h_process=h,
+                             w_process=w, w_final=w_final, h_final=h_final),
+            **series}

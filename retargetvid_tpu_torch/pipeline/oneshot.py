@@ -1,18 +1,23 @@
 """Whole-clip program: raw frames -> crop boxes.
 
 Port of ``retargetvid_tpu/pipeline/oneshot.py:sample_frames_device,
-scene_bounds_device, make_oneshot_body, OneShotClipProgram`` with the
-full-sequence TransNet plan (the JAX bench default):
+scene_bounds_device, make_oneshot_body, OneShotClipProgram``:
 
 1. two linear ingest resizes (27x48 for TransNet, max-dim 250 for
    saliency), quantized to uint8;
-2. one TransNetV1 forward over the edge-padded clip;
+2. TransNetV1: the reference's 100/50 window plan (the default, as in the
+   JAX package) or one forward over the edge-padded clip
+   (``tn_fullseq=True``, the JAX bench and ``cli benchmark`` default);
 3. frame sampling and scene bounds on the device;
 4. UNISAL on the sampled frames, the saliency postprocess kernel and the
-   geometry chain (``pipeline.fused``).
+   geometry chain (``pipeline.fused``), for one output ratio
+   (:meth:`OneShotClipProgram.run`) or R of them from one pass
+   (:meth:`OneShotClipProgram.dispatch_multi`).
 
-The windowed TransNet plan, ``dispatch_multi`` and the dynamic (ConvGRU)
-saliency branch are not ported yet.
+A clip with more shots than ``s_pad`` is refused; the two-dispatch path
+(``models.transnet.IngestShotProgram`` or ``TransNetPredictor``, host
+sampling and scenes, ``pipeline.fused.FusedClipProgram``) serves it.  The
+dynamic (ConvGRU) saliency branch is not ported yet.
 """
 
 from __future__ import annotations
@@ -25,13 +30,17 @@ import torch
 
 from retargetvid_tpu_torch.config import TRANS_THRESHOLD, sal_dims
 from retargetvid_tpu_torch.device import resolve_device
-from retargetvid_tpu_torch.models.transnet import INPUT_HEIGHT, INPUT_WIDTH
-from retargetvid_tpu_torch.ops.resize import resize, round_half_up
+from retargetvid_tpu_torch.models.transnet import (
+    fullseq_forward,
+    window_forward,
+)
 from retargetvid_tpu_torch.pipeline.fused import (
+    RATIO_KEYS,
     make_clip_fn,
     pack_clip_outputs,
     unpack_clip_outputs,
 )
+from retargetvid_tpu_torch.pipeline.ingest import _resize_kernel
 from retargetvid_tpu_torch.pipeline.geometry import GeometryConfig, bucket_size
 from retargetvid_tpu_torch.pipeline.saliency import get_optimal_out_size
 
@@ -153,30 +162,28 @@ def make_oneshot_body(un_model, tn_model, *, source, dtype, t_border,
                       cfg: GeometryConfig, fc: int, sal_hw, net_hw,
                       t_out: int, t_sel_pad: int, s_pad: int, skip: int,
                       fps: float, h_orig: int, w_orig: int,
-                      keep: tuple = (25, 75), stage=None):
-    """Whole-clip body ``(raw, w_final, h_final) -> dict`` (full-sequence
-    TransNet plan)."""
+                      window: int = 100, stride: int = 50,
+                      keep: tuple = (25, 75), tn_fullseq: bool = False,
+                      stage=None):
+    """Whole-clip body ``(raw, w_final, h_final) -> dict``; the targets
+    are ints for one ratio or equal-length sequences for R ratios."""
     stage = stage or (lambda name: contextlib.nullcontext())
     sal_h, sal_w = sal_hw
     clip_fn = make_clip_fn(
         un_model, source=source, dtype=dtype, t_border=t_border, cfg=cfg,
         in_hw=(sal_h, sal_w), net_hw=net_hw, t_out=t_out, fps=fps,
         h_orig=h_orig, w_orig=w_orig, stage=stage)
-
-    def to_u8(v):
-        return torch.clamp(round_half_up(v), 0, 255).to(torch.uint8)
+    resize = _resize_kernel(h_orig, w_orig, sal_h, sal_w)
 
     def body(raw, w_final, h_final):
         dev = raw.device
         with stage('transnet'):
-            tn = to_u8(resize(raw, (INPUT_HEIGHT, INPUT_WIDTH), 'linear',
-                              channels_last=True))
-            sal = to_u8(resize(raw, (sal_h, sal_w), 'linear',
-                               channels_last=True))
-            # One whole-sequence forward over the edge-padded clip.
-            src = torch.clamp(torch.arange(fc + 2 * keep[0], device=dev)
-                              - keep[0], 0, fc - 1)
-            probs = tn_model(tn[src][None])[0][keep[0]:keep[0] + fc]
+            tn, sal = resize(raw)
+            if tn_fullseq:
+                probs = fullseq_forward(tn_model, tn, fc, fc, keep=keep)
+            else:
+                probs = window_forward(tn_model, tn, fc, fc, window=window,
+                                       stride=stride, keep=keep)
             sel_mask_f, sel_idx, fc_sel, ti = sample_frames_device(
                 probs, skip, fc, t_sel_pad)
             ss, se, sss, sse, n_seg = scene_bounds_device(
@@ -204,16 +211,18 @@ class OneShotClipProgram:
     ``tn_model``/``un_model``: ``TransNetV1`` and ``UNISAL`` modules (for
     example filled by ``convert.load_flax_variables``).  TransNet computes
     in ``dtype``; UNISAL takes its input in ``dtype`` and computes in its
-    own parameters' dtype (float32), as the JAX models do.  ``device=None``
-    means the GPU.
+    own parameters' dtype (float32), as the JAX models do.  The TransNet
+    plan is the 100/50 window plan (``window``, ``stride``, ``keep``)
+    unless ``tn_fullseq``.  ``device=None`` means the GPU.
     """
 
     def __init__(self, tn_model, un_model, source: str = 'SALICON',
                  dtype=torch.bfloat16, t_border: int = -1, s_pad: int = 8,
-                 tn_fullseq: bool = True, device=None):
-        if not tn_fullseq:
-            raise NotImplementedError(
-                'the windowed TransNet plan is not ported yet')
+                 window: int = 100, stride: int = 50,
+                 keep: tuple = (25, 75), tn_fullseq: bool = False,
+                 device=None):
+        if window % stride:
+            raise ValueError('window must be a multiple of stride')
         self.device = resolve_device(device)
         self.tn_model = tn_model.to(self.device, dtype).eval()
         self.un_model = un_model.to(self.device).eval()
@@ -221,16 +230,18 @@ class OneShotClipProgram:
         self.dtype = dtype
         self.t_border = t_border
         self.s_pad = s_pad
+        self.window = window
+        self.stride = stride
+        self.keep = keep
+        self.tn_fullseq = tn_fullseq
         #: Optional :class:`StageTimer` (CUDA devices only).
         self.timer: Optional[StageTimer] = None
 
     def _t_sel_pad(self, fc: int, skip: int) -> int:
         return bucket_size(fc // skip + 2 + self.s_pad)
 
-    def dispatch(self, raw_frames, crop_params: dict, *, fps: float,
-                 w_final: int, h_final: int):
-        """Run the clip up to the packed output vector on the device;
-        returns a ticket for :meth:`collect`."""
+    def _dispatch(self, raw_frames, crop_params: dict, fps: float,
+                  w_final, h_final):
         raw = torch.as_tensor(raw_frames).to(self.device)
         if raw.dtype != torch.uint8 or raw.ndim != 4 or raw.shape[-1] != 3:
             raise ValueError(f'raw frames must be (fc, H, W, 3) uint8, got '
@@ -246,18 +257,16 @@ class OneShotClipProgram:
             sal_hw=sal_hw, net_hw=get_optimal_out_size(sal_hw),
             t_out=bucket_size(fc), t_sel_pad=self._t_sel_pad(fc, skip),
             s_pad=self.s_pad, skip=skip, fps=float(fps), h_orig=h,
-            w_orig=w, stage=stage)
+            w_orig=w, window=self.window, stride=self.stride,
+            keep=self.keep, tn_fullseq=self.tn_fullseq, stage=stage)
         with torch.inference_mode():
-            vec, spec = pack_clip_outputs(body(raw, int(w_final),
-                                               int(h_final)))
+            vec, spec = pack_clip_outputs(body(raw, w_final, h_final))
         return vec, spec, fc, skip
 
-    def collect(self, ticket) -> dict:
-        """Fetch and unpack a :meth:`dispatch` ticket; raises if the clip
-        overran the static bounds."""
-        vec, spec, fc, skip = ticket
+    def _fetch(self, vec, spec, fc: int, skip: int) -> dict:
+        """One device-to-host copy, unpacked; raises if the clip overran
+        the static bounds."""
         out = unpack_clip_outputs(vec.cpu().numpy(), spec)
-        out['boxes'] = out['boxes'][:fc].astype(np.int32)
         out['fc_sel'] = int(out['fc_sel'])
         out['n_segments'] = int(out['n_segments'])
         t_sel_pad = self._t_sel_pad(fc, skip)
@@ -265,7 +274,24 @@ class OneShotClipProgram:
             raise ValueError(
                 f'clip exceeds one-shot static bounds '
                 f'({out["n_segments"]} shots > s_pad={self.s_pad} or '
-                f'{out["fc_sel"]} picks > t_sel_pad={t_sel_pad})')
+                f'{out["fc_sel"]} picks > t_sel_pad={t_sel_pad}); '
+                'use the two-dispatch path (pipeline.fused.'
+                'FusedClipProgram)')
+        return out
+
+    def dispatch(self, raw_frames, crop_params: dict, *, fps: float,
+                 w_final: int, h_final: int):
+        """Run the clip up to the packed output vector on the device;
+        returns a ticket for :meth:`collect`."""
+        return self._dispatch(raw_frames, crop_params, fps, int(w_final),
+                              int(h_final))
+
+    def collect(self, ticket) -> dict:
+        """Fetch and unpack a :meth:`dispatch` ticket; raises if the clip
+        overran the static bounds."""
+        vec, spec, fc, skip = ticket
+        out = self._fetch(vec, spec, fc, skip)
+        out['boxes'] = out['boxes'][:fc].astype(np.int32)
         return out
 
     def run(self, raw_frames, crop_params: dict, *, fps: float,
@@ -273,3 +299,30 @@ class OneShotClipProgram:
         """(fc, H, W, 3) uint8 frames -> outputs dict (numpy)."""
         return self.collect(self.dispatch(raw_frames, crop_params, fps=fps,
                                           w_final=w_final, h_final=h_final))
+
+    def dispatch_multi(self, raw_frames, crop_params: dict, *, fps: float,
+                       dests):
+        """One pass for R output ratios, ``dests`` a sequence of
+        (w_final, h_final): resizes, TransNet, sampling, scenes, UNISAL, the
+        postprocess kernel and the geometry up to the smoothed series run
+        once; only the crop-box tail runs per ratio.  Returns a ticket for
+        :meth:`collect_multi`."""
+        dests = [(int(wf), int(hf)) for wf, hf in dests]
+        if not dests:
+            raise ValueError('dispatch_multi needs at least one destination')
+        vec, spec, fc, skip = self._dispatch(
+            raw_frames, crop_params, fps, tuple(d[0] for d in dests),
+            tuple(d[1] for d in dests))
+        return vec, spec, fc, skip, len(dests)
+
+    def collect_multi(self, ticket) -> list:
+        """Fetch a :meth:`dispatch_multi` ticket -> one outputs dict per
+        ratio (ratio-independent keys repeated in each)."""
+        vec, spec, fc, skip, n_ratios = ticket
+        out = self._fetch(vec, spec, fc, skip)
+        outs = []
+        for r in range(n_ratios):
+            o = {k: (v[r] if k in RATIO_KEYS else v) for k, v in out.items()}
+            o['boxes'] = o['boxes'][:fc].astype(np.int32)
+            outs.append(o)
+        return outs

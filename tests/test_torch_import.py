@@ -41,19 +41,41 @@ def test_port_imports_no_jax():
 
 def test_entry_points_need_a_gpu_unless_asked_for_cpu():
     from retargetvid_tpu_torch.device import resolve_device
-    from retargetvid_tpu_torch.models.transnet import TransNetV1
+    from retargetvid_tpu_torch.models.transnet import (
+        IngestShotProgram,
+        TransNetPredictor,
+        TransNetV1,
+    )
     from retargetvid_tpu_torch.models.unisal import UNISAL
+    from retargetvid_tpu_torch.pipeline.fused import FusedClipProgram
     from retargetvid_tpu_torch.pipeline.oneshot import OneShotClipProgram
 
+    def unisal():
+        return UNISAL(cnn_widen_factor=0.25, cnn_last_channel=None,
+                      rnn_input_channels=32, smoothing_ksize=11,
+                      smoothing_rank=4)
+
+    entry_points = {
+        'OneShotClipProgram': lambda **kw: OneShotClipProgram(
+            TransNetV1(f=2, d=16), unisal(), **kw),
+        'FusedClipProgram': lambda **kw: FusedClipProgram(unisal(), **kw),
+        'TransNetPredictor': lambda **kw: TransNetPredictor(
+            TransNetV1(f=2, d=16), **kw),
+        'IngestShotProgram': lambda **kw: IngestShotProgram(
+            TransNetV1(f=2, d=16), sal_hw=(36, 64), **kw),
+    }
     assert resolve_device('cpu') == torch.device('cpu')
+    for name, make in entry_points.items():
+        assert make(device='cpu').device == torch.device('cpu'), name
     if torch.cuda.is_available():
         pytest.skip('a GPU is present: the no-GPU contract is moot')
     with pytest.raises(RuntimeError, match='CUDA'):
         resolve_device(None)
-    with pytest.raises(RuntimeError, match='CUDA'):
-        OneShotClipProgram(TransNetV1(f=2, d=16), UNISAL(
-            cnn_widen_factor=0.25, cnn_last_channel=None,
-            rnn_input_channels=32, smoothing_ksize=11, smoothing_rank=4))
+    for name, make in entry_points.items():
+        with pytest.raises(RuntimeError, match='CUDA'):
+            make()
+        with pytest.raises(RuntimeError, match='CUDA'):
+            make(device='cuda')
 
 
 def test_kernel_wrapper_has_no_fallback():

@@ -19,7 +19,9 @@ torch.set_num_threads(1)
 FC, H, W = 48, 72, 128
 
 
-def _frames():
+def clip_frames():
+    """The fc=48, 72x128 clip of ``tests/test_oneshot.py``: a blob that
+    moves, then stops on a brighter background."""
     yy, xx = np.mgrid[0:H, 0:W]
     frames = np.zeros((FC, H, W, 3), np.uint8)
     for t in range(FC):
@@ -31,26 +33,18 @@ def _frames():
     return frames
 
 
-@pytest.fixture(scope='module')
-def runs():
+def models(**tn_cfg):
+    """Seeded JAX TransNet (``tn_cfg`` its widths; head biased to
+    ``[5, -5]``) and ``TINY_UNISAL_CFG`` UNISAL, and the port's modules
+    holding the same weights: (jt, tn_params, ju, un_vars, tn, un)."""
     from conftest import TINY_UNISAL_CFG
-    from retargetvid_tpu.config import sc_init_crop_params
     from retargetvid_tpu.models.transnet import TransNetV1 as JTransNet
     from retargetvid_tpu.models.unisal import UNISAL as JUNISAL
-    from retargetvid_tpu.ops.boxes import calc_dest_size
-    from retargetvid_tpu.pipeline.oneshot import OneShotClipProgram as JProg
     from retargetvid_tpu_torch.convert import load_flax_variables
     from retargetvid_tpu_torch.models.transnet import TransNetV1
     from retargetvid_tpu_torch.models.unisal import UNISAL
-    from retargetvid_tpu_torch.pipeline.oneshot import OneShotClipProgram
 
-    cp = sc_init_crop_params()
-    cp['out_ratio'] = '1:3'
-    dest = calc_dest_size(W, H, cp['out_ratio'])
-    kw = dict(fps=30.0, w_final=dest['w_final'], h_final=dest['h_final'])
-    frames = _frames()
-
-    jt = JTransNet()
+    jt = JTransNet(**tn_cfg)
     tn_params = jax.tree_util.tree_map(np.asarray, jt.init(
         jax.random.PRNGKey(0), jnp.zeros((1, 8, 27, 48, 3), jnp.uint8)))
     tn_params['params']['dense2']['bias'] = np.asarray([5.0, -5.0],
@@ -59,14 +53,29 @@ def runs():
     un_vars = jax.tree_util.tree_map(np.asarray, ju.init(
         jax.random.PRNGKey(1), jnp.zeros((1, 1, 224, 416, 3), jnp.float32),
         static=True))
+    tn = load_flax_variables(TransNetV1(**tn_cfg), tn_params)
+    un = load_flax_variables(UNISAL(**TINY_UNISAL_CFG), un_vars,
+                             skip=('rnn', 'post_rnn'))
+    return jt, tn_params, ju, un_vars, tn, un
 
+
+@pytest.fixture(scope='module')
+def runs():
+    from retargetvid_tpu.config import sc_init_crop_params
+    from retargetvid_tpu.ops.boxes import calc_dest_size
+    from retargetvid_tpu.pipeline.oneshot import OneShotClipProgram as JProg
+    from retargetvid_tpu_torch.pipeline.oneshot import OneShotClipProgram
+
+    cp = sc_init_crop_params()
+    cp['out_ratio'] = '1:3'
+    dest = calc_dest_size(W, H, cp['out_ratio'])
+    kw = dict(fps=30.0, w_final=dest['w_final'], h_final=dest['h_final'])
+    frames = clip_frames()
+    jt, tn_params, ju, un_vars, tn, un = models()
     ref = JProg(jt, tn_params, variables=un_vars, model=ju,
                 dtype=jnp.float32, tn_fullseq=True).run(
         jnp.asarray(frames), cp, **kw)
-    tn = load_flax_variables(TransNetV1(), tn_params)
-    un = load_flax_variables(UNISAL(**TINY_UNISAL_CFG), un_vars,
-                             skip=('rnn', 'post_rnn'))
-    out = OneShotClipProgram(tn, un, dtype=torch.float32,
+    out = OneShotClipProgram(tn, un, dtype=torch.float32, tn_fullseq=True,
                              device='cpu').run(frames, cp, **kw)
     return ref, out, (ju, un_vars, un, frames, cp)
 
@@ -88,9 +97,9 @@ def test_probs(runs):
                                rtol=0, atol=1e-5)
 
 
-def _saliency_maps(runs):
-    """Each side's uint8 saliency maps of the selected frames, from its own
-    ingest resize, preprocess, UNISAL and postprocess."""
+def saliency_maps(ju, un_vars, un, frames, sel):
+    """Each side's uint8 saliency maps of the frames ``sel`` of ``frames``,
+    from its own ingest resize, preprocess, UNISAL and postprocess."""
     from retargetvid_tpu.ops.resize import resize as jresize
     from retargetvid_tpu.ops.resize import round_half_up as jrhu
     from retargetvid_tpu.pipeline.ingest import sal_dims
@@ -102,10 +111,9 @@ def _saliency_maps(runs):
     from retargetvid_tpu_torch.ops.resize import resize, round_half_up
     from retargetvid_tpu_torch.pipeline.saliency import preprocess_frames
 
-    ref, _, (ju, un_vars, un, frames, cp) = runs
-    sal_hw = sal_dims(W, H, cp['max_input_d'])
+    sal_hw = sal_dims(frames.shape[2], frames.shape[1], 250)
     net_hw = get_optimal_out_size(sal_hw)
-    sel = np.asarray(ref['sel_idx'], np.int64)[:ref['fc_sel']]
+    sel = np.asarray(sel, np.int64)
 
     def jfn(v, x):
         sal = jnp.clip(jrhu(jresize(x, sal_hw, 'linear')), 0, 255)
@@ -130,8 +138,9 @@ def _saliency_maps(runs):
 
 def test_boxes(runs):
     """Within 1 px; exactly equal when the uint8 saliency maps are."""
-    ref, out, _ = runs
-    jmaps, tmaps = _saliency_maps(runs)
+    ref, out, (ju, un_vars, un, frames, _) = runs
+    jmaps, tmaps = saliency_maps(ju, un_vars, un, frames,
+                                 ref['sel_idx'][:ref['fc_sel']])
     map_diff = np.abs(jmaps.astype(int) - tmaps.astype(int))
     box_err = int(np.abs(out['boxes'] - ref['boxes']).max())
     print(f'saliency maps: {int((map_diff > 0).sum())} of {map_diff.size} '
@@ -160,7 +169,8 @@ def test_static_bound_overrun_raises(runs):
 
     _, _, (_, _, un, frames, cp) = runs
     tn = _AlwaysCut()
-    prog = OneShotClipProgram(tn, un, dtype=torch.float32, device='cpu')
+    prog = OneShotClipProgram(tn, un, dtype=torch.float32, tn_fullseq=True,
+                              device='cpu')
     with pytest.raises(ValueError, match='static bounds'):
         prog.run(frames, cp, fps=30.0, w_final=24, h_final=72)
 
