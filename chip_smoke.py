@@ -37,18 +37,29 @@ fails (exit code != 0) if any phase fails:
       of ``bench.py``: the ingest resizes and the real windowed
       ``TransNetPredictor`` forward (timed; the stand-in's profile drives
       the rest), host sampling and scenes, ``FusedClipProgram.run``;
-  (d) exactness, in float32 with TF32 off: the main-path clip once through
-      the kernel and once through the plain postprocess gives identical
-      boxes; the windowed one-shot probabilities equal
-      ``TransNetPredictor``'s on the same frames within 1e-5; each ratio of
-      ``dispatch_multi`` gives the boxes of that ratio's ``run``; and the
-      port on the card agrees with the port on the CPU (which the test
-      suite holds against the JAX package) on a small clip, by the
-      full-sequence plan, the window plan and the two-dispatch path.
+  (i) ISM preset: (c), (g) and (f) again under the ISM-2021 "best
+      settings" (``sc_init_crop_params(use_best_settings=True)``: the
+      factor-4 filter roundtrip, focus stability, Savitzky-Golay, the
+      order-2 Butterworth), each with its launches, the focus jump pairs
+      and the frames frozen per clip;
+  (d) exactness, in float32 with TF32 off, under the ICIP and the ISM
+      preset: the main-path clip once through the kernel and once through
+      the plain postprocess gives identical boxes; each ratio of
+      ``dispatch_multi`` gives the boxes of that ratio's ``run``; the port
+      on the card agrees with the port on the CPU (which the test suite
+      holds against the JAX package) within 1 px on a small clip, by the
+      full-sequence plan, the window plan and the two-dispatch path, and
+      by the full-sequence plan under each further setting (border
+      detection, time shift, argmax center, adaptive linking, cubic and
+      nearest factor-4 downscales); the ISM geometry chain on a saliency
+      volume whose focus jumps gives the same jump pairs and frozen spans
+      on the card and on the CPU, and boxes within 1 px; and the windowed
+      one-shot probabilities equal ``TransNetPredictor``'s within 1e-5.
 
-``--profile DIR`` adds one ``torch.profiler`` run of a main-path clip
-(device busy time, idle share, kernel launches, the postprocess kernel's own
-device time; the per-operator table goes to ``DIR/profile_main_path.txt``).
+``--profile DIR`` adds one ``torch.profiler`` run of a main-path clip and
+one of an ISM clip (device busy time, idle share, kernel launches, the
+postprocess kernel's own device time; the per-operator tables go to
+``DIR/profile_main_path.txt`` and ``DIR/profile_ism_main_path.txt``).
 
 Each phase prints one JSON line carrying the card's name and power limit;
 then a line with every kernel's record (with its launches on each path),
@@ -388,6 +399,35 @@ def drive(run, warm, clips, program=None):
     return times, outs, launches, stages
 
 
+def focus_spans(jumps, n, cp, fps):
+    """The focus jumps among the first ``n`` jump scores (index >= 1) and
+    the spans focus stability froze; returns (jump indices, spans, frames
+    in the spans)."""
+    from retargetvid_tpu_torch.ops.temporal import frozen_spans
+    inds = [i for i in range(1, n) if jumps[i] < cp['foces_stab_t']]
+    spans = frozen_spans(inds, fc_sel=n, skip=cp['skip'], fps=fps,
+                         stab_secs=cp['foces_stab_s'])
+    return inds, spans, len(set().union(*(range(a, b) for a, b in spans)))
+
+
+def focus_stats(outs, cp, fps):
+    """Per clip: the focus-jump pairs and the frozen frames."""
+    pairs, frozen = [], []
+    for out in outs:
+        n = out['fc_sel'] if 'fc_sel' in out else len(out['dx'])
+        inds, _, n_frozen = focus_spans(out['jumps'], int(n), cp, fps)
+        pairs.append(max(len(inds) - 1, 0))
+        frozen.append(n_frozen)
+    return {'jump_pairs': pairs, 'frozen_frames': frozen}
+
+
+def ism_params():
+    from retargetvid_tpu_torch.config import sc_init_crop_params
+    cp = sc_init_crop_params(use_best_settings=True)
+    cp['out_ratio'] = '1:3'
+    return cp
+
+
 def expect_launches(path, launches, n):
     if launches != n:
         fail(f'{path}: {launches} saliency_postprocess launches for {n} '
@@ -415,8 +455,37 @@ def phase_main_path(card, bench, profile_dir=None):
          stage_median_ms=stages, postprocess_launches=launches)
     if profile_dir is not None:
         profile_clip(card, program, bench.clips[0], bench.cp, bench.kw,
-                     Path(profile_dir))
+                     Path(profile_dir), 'main_path')
     return program, outs, stages, launches
+
+
+def phase_ism(card, bench, profile_dir=None):
+    """The main path under the ISM preset; returns the program and its
+    launches."""
+    import torch
+
+    from retargetvid_tpu_torch.pipeline.oneshot import OneShotClipProgram
+    cp = ism_params()
+    program = OneShotClipProgram(bench.tn, bench.un, dtype=torch.bfloat16,
+                                 tn_fullseq=True)
+    times, outs, launches, stages = drive(
+        lambda c: program.run(c, cp, **bench.kw), bench.warm, bench.clips,
+        program)
+    expect_launches('ISM main path', launches, len(bench.clips))
+    for out in outs:
+        bench.check(out)
+    med = statistics.median(times)
+    emit(card, phase='ism_main_path', preset='ISM-2021',
+         clip=[480, bench.h, bench.w], dtype='bfloat16', tn_plan='fullseq',
+         per_clip_ms=times, median_ms=med, frames_per_s=480 / med * 1e3,
+         fc_sel=[o['fc_sel'] for o in outs],
+         n_segments=[o['n_segments'] for o in outs],
+         **focus_stats(outs, cp, bench.fps), boxes_in_frame_at_dest=True,
+         stage_median_ms=stages, postprocess_launches=launches)
+    if profile_dir is not None:
+        profile_clip(card, program, bench.clips[0], cp, bench.kw,
+                     Path(profile_dir), 'ism_main_path')
+    return program, launches
 
 
 def phase_windowed(card, bench, main_outs, main_stages):
@@ -449,23 +518,25 @@ def phase_windowed(card, bench, main_outs, main_stages):
     return launches
 
 
-def phase_multi_ratio(card, bench, program):
+def phase_multi_ratio(card, bench, program, cp=None, phase='multi_ratio'):
     """``dispatch_multi`` for both ratios and the two ``run`` calls it
     replaces, in turns on each clip (multi first on even clips, runs first
-    on odd ones); the launch count is set to 0 before each and read after."""
+    on odd ones); the launch count is set to 0 before each and read after.
+    ``cp`` defaults to the bench's ICIP parameters."""
     import torch
 
     from retargetvid_tpu_torch.kernels.postprocess import saliency_postprocess
     from retargetvid_tpu_torch.pipeline.oneshot import StageTimer
+    cp = cp or bench.cp
     dests = [(d['w_final'], d['h_final']) for d in bench.dests]
     kw = dict(fps=bench.fps)
 
     def multi(clip):
         return program.collect_multi(program.dispatch_multi(
-            clip, bench.cp, dests=dests, **kw))
+            clip, cp, dests=dests, **kw))
 
     def runs(clip):
-        return [program.run(clip, bench.cp, w_final=wf, h_final=hf, **kw)
+        return [program.run(clip, cp, w_final=wf, h_final=hf, **kw)
                 for wf, hf in dests]
 
     multi(bench.warm)
@@ -485,8 +556,9 @@ def phase_multi_ratio(card, bench, program):
             ms[name].append((time.perf_counter() - t0) * 1e3)
             launches[name] += saliency_postprocess.launches
     program.timer = None
-    expect_launches('multi-ratio', launches['multi'], len(bench.clips))
-    expect_launches('two runs', launches['runs'], 2 * len(bench.clips))
+    expect_launches(phase, launches['multi'], len(bench.clips))
+    expect_launches(f'{phase}, two runs', launches['runs'],
+                    2 * len(bench.clips))
     same = 0
     for per_ratio, per_run in zip(outs['multi'], outs['runs']):
         for out, single, dest in zip(per_ratio, per_run, bench.dests):
@@ -495,9 +567,11 @@ def phase_multi_ratio(card, bench, program):
             same += int(np.array_equal(out['boxes'], single['boxes']))
     med, run_med = (statistics.median(ms['multi']),
                     statistics.median(ms['runs']))
-    emit(card, phase='multi_ratio', clip=[480, bench.h, bench.w],
+    extra = focus_stats([o[0] for o in outs['multi']], cp, bench.fps) \
+        if cp['focus_stability'] else {}
+    emit(card, phase=phase, clip=[480, bench.h, bench.w],
          dtype='bfloat16', tn_plan='fullseq', ratios=['1:3', '3:1'],
-         per_clip_ms=ms['multi'], median_ms=med,
+         **extra, per_clip_ms=ms['multi'], median_ms=med,
          stage_median_ms={k: statistics.median(v)
                           for k, v in timer.times_ms().items()},
          two_runs_per_clip_ms=ms['runs'], two_runs_median_ms=run_med,
@@ -544,7 +618,9 @@ def two_dispatch(clip, cp, kw, resize, fused, profile, real=None):
                            (t3 - t2) * 1e3]
 
 
-def phase_two_dispatch(card, bench):
+def phase_two_dispatch(card, bench, cp=None, phase='two_dispatch'):
+    """The 12-shot clip, refused by the one-shot program and served by the
+    two-dispatch path; ``cp`` defaults to the bench's ICIP parameters."""
     import torch
 
     from retargetvid_tpu_torch.models.transnet import TransNetPredictor
@@ -560,9 +636,10 @@ def phase_two_dispatch(card, bench):
     warm = torch.from_numpy(make_clip(seed=100, shot_len=40)).cuda()
     clips = [torch.from_numpy(make_clip(seed=s, shot_len=40)).cuda()
              for s in range(4)]
+    cp = cp or bench.cp
     try:
         OneShotClipProgram(standin, bench.un, dtype=torch.bfloat16).run(
-            warm, bench.cp, **bench.kw)
+            warm, cp, **bench.kw)
     except ValueError as exc:
         refusal = str(exc)
     else:
@@ -573,30 +650,33 @@ def phase_two_dispatch(card, bench):
     real = TransNetPredictor(bench.tn)            # window plan, bf16
     fused = FusedClipProgram(bench.un, dtype=torch.bfloat16)
     kw = dict(bench.kw, h_orig=h, w_orig=w)
-    two_dispatch(warm, bench.cp, kw, resize, fused, profile, real)
+    two_dispatch(warm, cp, kw, resize, fused, profile, real)
     timer = StageTimer()
     fused.timer = timer
     saliency_postprocess.launches = 0
     outs, shots, parts = [], [], []
     for clip in clips:
-        out, n_seg, ms = two_dispatch(clip, bench.cp, kw, resize, fused,
+        out, n_seg, ms = two_dispatch(clip, cp, kw, resize, fused,
                                       profile, real)
         outs.append(out)
         shots.append(n_seg)
         parts.append(ms)
     launches = saliency_postprocess.launches
     fused.timer = None
-    expect_launches('two-dispatch', launches, len(clips))
+    expect_launches(phase, launches, len(clips))
     if shots != [12] * len(clips):
-        fail(f'two-dispatch: {shots} shots, expected 12 per clip')
+        fail(f'{phase}: {shots} shots, expected 12 per clip')
     for out in outs:
         bench.check(out)
     stages = {k: statistics.median(v) for k, v in timer.times_ms().items()}
     names = ('ingest_and_transnet', 'host_sampling', 'fused')
     per_part = {n: [p[i] for p in parts] for i, n in enumerate(names)}
     totals = [sum(p) for p in parts]
-    emit(card, phase='two_dispatch', clip=[480, h, w], dtype='bfloat16',
+    extra = focus_stats(outs, cp, bench.fps) if cp['focus_stability'] \
+        else {}
+    emit(card, phase=phase, clip=[480, h, w], dtype='bfloat16',
          tn_plan='windowed', shots=shots, refused_by_oneshot=refusal,
+         **extra,
          fc_sel=[int(len(o['dx'])) for o in outs],
          per_clip_ms=totals, median_ms=statistics.median(totals),
          part_median_ms={n: statistics.median(v)
@@ -605,10 +685,10 @@ def phase_two_dispatch(card, bench):
     return launches
 
 
-def profile_clip(card, program, clip, cp, kw, out_dir: Path):
+def profile_clip(card, program, clip, cp, kw, out_dir: Path, name: str):
     """``torch.profiler`` over one more clip: device busy time against the
     wall time, kernel launches, and the per-operator table (written to
-    ``out_dir/profile_main_path.txt``)."""
+    ``out_dir/profile_<name>.txt``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -633,14 +713,15 @@ def profile_clip(card, program, clip, cp, kw, out_dir: Path):
     pp_count = sum(a.count for a in pp)
     pp_us = sum(getattr(a, key) for a in pp) / pp_count if pp_count else None
     out_dir.mkdir(parents=True, exist_ok=True)
-    (out_dir / 'profile_main_path.txt').write_text(
-        f'{card}\n' + avg.table(sort_by=key, row_limit=40))
-    emit(card, phase='profile', wall_ms=wall_ms, device_busy_ms=busy_ms,
+    table = out_dir / f'profile_{name}.txt'
+    table.write_text(f'{card}\n' + avg.table(sort_by=key, row_limit=40))
+    emit(card, phase='profile', path=name, wall_ms=wall_ms,
+         device_busy_ms=busy_ms,
          device_idle_share=1.0 - busy_ms / wall_ms,
          kernel_launches=len(kernels),
          postprocess_kernel_device_us=pp_us,
          postprocess_kernel_rows=[a.key for a in pp],
-         table=str(out_dir / 'profile_main_path.txt'))
+         table=str(table))
 
 
 @contextlib.contextmanager
@@ -687,45 +768,163 @@ def small_clip(fc=48, h=72, w=128):
     return frames
 
 
-def small_clip_paths(device, frames, cp):
-    """The small clip through the full-sequence plan, the window plan and
-    the two-dispatch path (driven by the stand-in's cut) on ``device``,
-    float32, with narrow models made from the same seeds."""
+def small_models(device):
+    """Full-width TransNet (head biased) and the narrow UNISAL of the test
+    suite, from the same seeds on every device."""
     import torch
 
     from retargetvid_tpu_torch.models.init import seeded_init_
-    from retargetvid_tpu_torch.models.transnet import (
-        TransNetPredictor,
-        TransNetV1,
-    )
+    from retargetvid_tpu_torch.models.transnet import TransNetV1
     from retargetvid_tpu_torch.models.unisal import UNISAL
-    from retargetvid_tpu_torch.ops.boxes import calc_dest_size
-    from retargetvid_tpu_torch.pipeline.fused import FusedClipProgram
-    from retargetvid_tpu_torch.pipeline.ingest import _resize_kernel, sal_dims
-    from retargetvid_tpu_torch.pipeline.oneshot import OneShotClipProgram
-    h, w = frames.shape[1:3]
-    dest = calc_dest_size(w, h, cp['out_ratio'])
-    kw = dict(fps=30.0, w_final=dest['w_final'], h_final=dest['h_final'])
     tiny = dict(cnn_widen_factor=0.25, cnn_last_channel=None,
                 rnn_input_channels=32, smoothing_ksize=11, smoothing_rank=4)
     tn = seeded_init_(TransNetV1(), 0)
     with torch.no_grad():
         tn.dense2.bias.copy_(torch.tensor([5.0, -5.0]))
-    un = seeded_init_(UNISAL(**tiny), 1)
+    return tn.to(device), seeded_init_(UNISAL(**tiny), 1).to(device)
+
+
+def small_clip_paths(device, models, frames, cp, all_plans=True,
+                     t_border=-1):
+    """The small clip through the full-sequence plan and, with
+    ``all_plans``, the window plan and the two-dispatch path (driven by the
+    stand-in's cut) on ``device``, float32."""
+    import torch
+
+    from retargetvid_tpu_torch.models.transnet import TransNetPredictor
+    from retargetvid_tpu_torch.ops.boxes import calc_dest_size
+    from retargetvid_tpu_torch.pipeline.fused import FusedClipProgram
+    from retargetvid_tpu_torch.pipeline.ingest import _resize_kernel, sal_dims
+    from retargetvid_tpu_torch.pipeline.oneshot import OneShotClipProgram
+    tn, un = models
+    h, w = frames.shape[1:3]
+    dest = calc_dest_size(w, h, cp['out_ratio'])
+    kw = dict(fps=30.0, w_final=dest['w_final'], h_final=dest['h_final'])
     outs = {}
     for plan, fullseq in (('fullseq', True), ('windowed', False)):
-        outs[plan] = OneShotClipProgram(
-            tn, un, dtype=torch.float32, tn_fullseq=fullseq,
-            device=device).run(frames, cp, **kw)
-    resize = _resize_kernel(h, w, *sal_dims(w, h, cp['max_input_d']))
-    profile = TransNetPredictor(cut_detector(), device=device)
-    fused = FusedClipProgram(un, dtype=torch.float32, device=device)
-    out, n_seg, _ = two_dispatch(torch.from_numpy(frames).to(device), cp,
-                                 dict(kw, h_orig=h, w_orig=w), resize, fused,
-                                 profile)
-    out['fc_sel'], out['n_segments'] = len(out['dx']), n_seg
-    outs['two_dispatch'] = out
+        if fullseq or all_plans:
+            outs[plan] = OneShotClipProgram(
+                tn, un, dtype=torch.float32, tn_fullseq=fullseq,
+                t_border=t_border, device=device).run(frames, cp, **kw)
+    if all_plans:
+        resize = _resize_kernel(h, w, *sal_dims(w, h, cp['max_input_d']))
+        profile = TransNetPredictor(cut_detector(), device=device)
+        fused = FusedClipProgram(un, dtype=torch.float32, t_border=t_border,
+                                 device=device)
+        out, n_seg, _ = two_dispatch(torch.from_numpy(frames).to(device), cp,
+                                     dict(kw, h_orig=h, w_orig=w), resize,
+                                     fused, profile)
+        out['fc_sel'], out['n_segments'] = len(out['dx']), n_seg
+        outs['two_dispatch'] = out
     return outs
+
+
+#: Further settings held card vs CPU on the small clip, over the ICIP
+#: preset: (crop-parameter changes, the programs' ``t_border``).
+SETTINGS = {
+    't_border=10': ({}, 10),
+    'shift_time=5': ({'shift_time': 5}, -1),
+    'com_km=False': ({'com_km': False}, -1),
+    'tpu_adaptive_link': ({'tpu_adaptive_link': True}, -1),
+    'resize_type=2, factor 4': ({'resize_factor': 4, 'resize_type': 2}, -1),
+    'resize_type=3, factor 4': ({'resize_factor': 4, 'resize_type': 3}, -1),
+}
+
+
+def card_vs_cpu(label, gpu, cpu):
+    """Largest box difference (px) per path; fails beyond 1 px or on
+    different picks or shots."""
+    box_err = {}
+    for path in gpu:
+        if (gpu[path]['fc_sel'], gpu[path]['n_segments']) != (
+                cpu[path]['fc_sel'], cpu[path]['n_segments']):
+            fail(f'small clip, {label}, {path}: sampling differs between '
+                 f'card and CPU')
+        box_err[path] = int(np.abs(gpu[path]['boxes']
+                                   - cpu[path]['boxes']).max())
+        if box_err[path] > 1:
+            fail(f'small clip, {label}, {path}: card and CPU boxes differ '
+                 f'by {box_err[path]} px')
+    return box_err
+
+
+def focus_volume():
+    """The ISM geometry's focus case: a 150-frame clip sampled every 6
+    frames with cuts after frames 59 and 64, and uint8 saliency on its 26
+    picks (a blob that sweeps right, jumps back at the cut and sweeps left,
+    over 2% speckle, one empty map), as ``tests/test_torch_geometry.py``
+    builds it.  Returns the volume padded to 32 picks and the chain's
+    padded arguments."""
+    import torch
+
+    from retargetvid_tpu_torch.ops.scenes import (
+        fix_scene_bounds,
+        predictions_to_scenes,
+        scenes_to_selected,
+    )
+    from retargetvid_tpu_torch.pipeline.ingest import sample_frames
+    fc, h, w, t_pad, s_pad = 150, 140, 250, 32, 4
+    probs = np.zeros(fc, np.float32)
+    probs[[59, 64]] = 0.9
+    _, true_inds, m2o = sample_frames(fc, probs, 6, fc)
+    seg = fix_scene_bounds(predictions_to_scenes(probs, 0.1), fc)
+    seg_sel = scenes_to_selected(seg, m2o)
+    rng = np.random.default_rng(7)
+    yy, xx = np.mgrid[0:h, 0:w]
+    t_sel = len(true_inds)
+    maps = np.zeros((t_pad, h, w), np.float32)
+    for i, f in enumerate(true_inds):
+        cx = w * (0.2 + 0.6 * f / fc) if f < 60 else w * (0.8 - 0.4 * f / fc)
+        cy = h * (0.5 + 0.2 * np.sin(f / 10.0))
+        maps[i] = 250 * np.exp(-((yy - cy) ** 2 + (xx - cx) ** 2) / 400.0)
+        maps[i] += (rng.random((h, w)) < 0.02) * rng.uniform(0, 255, (h, w))
+    maps[5] = 0.0
+    ti = np.zeros(t_pad, np.int64)
+    ti[:t_sel] = true_inds
+    ti[t_sel:] = ti[t_sel - 1] + np.arange(1, t_pad - t_sel + 1)
+
+    def pad_seg(arr, col):
+        out = np.zeros(s_pad, np.int64)
+        out[:len(seg)] = np.asarray(arr)[:, col]
+        return torch.from_numpy(out)
+
+    return (torch.from_numpy(np.clip(maps, 0, 255).astype(np.uint8)),
+            torch.from_numpy(np.arange(t_pad) < t_sel), t_sel,
+            torch.from_numpy(ti), pad_seg(seg, 0), pad_seg(seg, 1),
+            pad_seg(seg_sel, 0), pad_seg(seg_sel, 1), len(seg)), fc
+
+
+def ism_geometry_card_vs_cpu(cp):
+    """The geometry chain under ISM on :func:`focus_volume`, on the card
+    and on the CPU: the jump pairs and frozen spans must be equal and
+    present, the boxes within 1 px.  Returns the record."""
+    import torch
+
+    from retargetvid_tpu_torch.pipeline.geometry import (
+        GeometryConfig,
+        geometry_pipeline,
+    )
+    args, fc = focus_volume()
+    t_sel = args[2]
+    res = {}
+    for dev in ('cuda', 'cpu'):
+        zero = torch.zeros((), dtype=torch.int32, device=dev)
+        out = geometry_pipeline(
+            *[a.to(dev) if torch.is_tensor(a) else a for a in args], fc,
+            zero, zero, zero, zero, cfg=GeometryConfig.from_crop_params(cp),
+            fps=30.0, h_orig=360, w_orig=640, w_final=120, h_final=360,
+            t_out=160)
+        res[dev] = (out['boxes'].cpu().numpy()[:fc], *focus_spans(
+            out['jumps'].cpu().numpy(), t_sel, cp, 30.0))
+    (gb, gi, gs, n_frozen), (cb, ci, cs, _) = res['cuda'], res['cpu']
+    if (gi, gs) != (ci, cs) or len(gi) < 2 or not gs:
+        fail(f'ISM geometry: jumps {gi} / spans {gs} on the card, {ci} / '
+             f'{cs} on the CPU')
+    box_err = int(np.abs(gb - cb).max())
+    if box_err > 1:
+        fail(f'ISM geometry: card and CPU boxes differ by {box_err} px')
+    return {'jump_pairs': len(gi) - 1, 'frozen_spans': gs,
+            'frozen_frames': n_frozen, 'max_box_px': box_err}
 
 
 def phase_exact(card):
@@ -737,8 +936,9 @@ def phase_exact(card):
     from retargetvid_tpu_torch.ops.boxes import calc_dest_size
     from retargetvid_tpu_torch.pipeline.ingest import _resize_kernel, sal_dims
     from retargetvid_tpu_torch.pipeline.oneshot import OneShotClipProgram
-    cp = sc_init_crop_params()
-    cp['out_ratio'] = '1:3'
+    icip = sc_init_crop_params()
+    icip['out_ratio'] = '1:3'
+    presets = {'icip': icip, 'ism': ism_params()}
     clip = torch.from_numpy(make_clip(seed=0)).cuda()
     h, w = int(clip.shape[1]), int(clip.shape[2])
     dests = [calc_dest_size(w, h, r) for r in ('1:3', '3:1')]
@@ -749,24 +949,45 @@ def phase_exact(card):
                                  tn_fullseq=True)
     windowed = OneShotClipProgram(tn, un, dtype=torch.float32)
 
-    # Kernel vs plain postprocess on the main path.
-    before = saliency_postprocess.launches
-    with_kernel = fullseq.run(clip, cp, **kw)
-    if saliency_postprocess.launches != before + 1:
-        fail('the float32 run did not launch the kernel exactly once')
-    with plain_postprocess():
-        with_plain = fullseq.run(clip, cp, **kw)
-    if saliency_postprocess.launches != before + 1:
-        fail('the plain run launched the kernel')
-    n_box_diff = int((with_kernel['boxes'] != with_plain['boxes']).any(1)
-                     .sum())
-    if n_box_diff:
-        fail(f'kernel and plain postprocess give different boxes on '
-             f'{n_box_diff} frames')
+    n_box_diff, fc_sel, n_segments = {}, {}, {}
+    for name, cp in presets.items():
+        # Kernel vs plain postprocess on the main path.
+        before = saliency_postprocess.launches
+        with_kernel = fullseq.run(clip, cp, **kw)
+        if saliency_postprocess.launches != before + 1:
+            fail(f'{name}: the float32 run did not launch the kernel '
+                 f'exactly once')
+        with plain_postprocess():
+            with_plain = fullseq.run(clip, cp, **kw)
+        if saliency_postprocess.launches != before + 1:
+            fail(f'{name}: the plain run launched the kernel')
+        n_box_diff[name] = int((with_kernel['boxes'] != with_plain['boxes'])
+                               .any(1).sum())
+        if n_box_diff[name]:
+            fail(f'{name}: kernel and plain postprocess give different '
+                 f'boxes on {n_box_diff[name]} frames')
+        fc_sel[name] = with_kernel['fc_sel']
+        n_segments[name] = with_kernel['n_segments']
+
+        # dispatch_multi vs each ratio's run.
+        before = saliency_postprocess.launches
+        multi = fullseq.collect_multi(fullseq.dispatch_multi(
+            clip, cp, fps=30.0,
+            dests=[(d['w_final'], d['h_final']) for d in dests]))
+        if saliency_postprocess.launches != before + 1:
+            fail(f'{name}: dispatch_multi did not launch the kernel '
+                 f'exactly once')
+        for out, dest in zip(multi, dests):
+            single = fullseq.run(clip, cp, fps=30.0,
+                                 w_final=dest['w_final'],
+                                 h_final=dest['h_final'])
+            if not np.array_equal(out['boxes'], single['boxes']):
+                fail(f'{name}: dispatch_multi boxes differ from run at '
+                     f'{dest["w_final"]}x{dest["h_final"]}')
 
     # The one-shot window plan vs TransNetPredictor on the same frames.
-    one = windowed.run(clip, cp, **kw)
-    resize = _resize_kernel(h, w, *sal_dims(w, h, cp['max_input_d']))
+    one = windowed.run(clip, icip, **kw)
+    resize = _resize_kernel(h, w, *sal_dims(w, h, icip['max_input_d']))
     with torch.inference_mode():
         tn_frames = resize(clip)[0]
     probs = TransNetPredictor(tn)(tn_frames)
@@ -775,39 +996,27 @@ def phase_exact(card):
         fail(f'windowed one-shot probs differ from TransNetPredictor by '
              f'{probs_err}')
 
-    # dispatch_multi vs each ratio's run.
-    before = saliency_postprocess.launches
-    multi = fullseq.collect_multi(fullseq.dispatch_multi(
-        clip, cp, fps=30.0,
-        dests=[(d['w_final'], d['h_final']) for d in dests]))
-    if saliency_postprocess.launches != before + 1:
-        fail('dispatch_multi did not launch the kernel exactly once')
-    for out, dest in zip(multi, dests):
-        single = fullseq.run(clip, cp, fps=30.0, w_final=dest['w_final'],
-                             h_final=dest['h_final'])
-        if not np.array_equal(out['boxes'], single['boxes']):
-            fail(f'dispatch_multi boxes differ from run at '
-                 f'{dest["w_final"]}x{dest["h_final"]}')
-
     # Small clip: the port on the card vs the port on the CPU.
     frames = small_clip()
-    gpu, cpu = (small_clip_paths(d, frames, cp) for d in ('cuda', 'cpu'))
+    models = {d: small_models(d) for d in ('cuda', 'cpu')}
     box_err = {}
-    for path in gpu:
-        if (gpu[path]['fc_sel'], gpu[path]['n_segments']) != (
-                cpu[path]['fc_sel'], cpu[path]['n_segments']):
-            fail(f'small clip, {path}: sampling differs between card and '
-                 f'CPU')
-        box_err[path] = int(np.abs(gpu[path]['boxes']
-                                   - cpu[path]['boxes']).max())
-        if box_err[path] > 1:
-            fail(f'small clip, {path}: card and CPU boxes differ by '
-                 f'{box_err[path]} px')
-    if gpu['two_dispatch']['n_segments'] != 2:
-        fail('small clip: the stand-in did not find the cut')
+    for name, cp in presets.items():
+        gpu, cpu = (small_clip_paths(d, models[d], frames, cp)
+                    for d in ('cuda', 'cpu'))
+        box_err[name] = card_vs_cpu(name, gpu, cpu)
+        if gpu['two_dispatch']['n_segments'] != 2:
+            fail('small clip: the stand-in did not find the cut')
+    for name, (changes, t_border) in SETTINGS.items():
+        cp = dict(icip, **changes)
+        gpu, cpu = (small_clip_paths(d, models[d], frames, cp,
+                                     all_plans=False, t_border=t_border)
+                    for d in ('cuda', 'cpu'))
+        box_err[name] = card_vs_cpu(name, gpu, cpu)
+    focus = ism_geometry_card_vs_cpu(presets['ism'])
     emit(card, phase='exact_float32', dtype='float32', tf32=False,
          kernel_vs_plain_boxes_differing_frames=n_box_diff,
-         fc_sel=with_kernel['fc_sel'], n_segments=with_kernel['n_segments'],
+         ism_geometry_focus_card_vs_cpu=focus,
+         fc_sel=fc_sel, n_segments=n_segments,
          windowed_probs_vs_predictor_max_abs=probs_err,
          multi_ratio_boxes_equal_to_run=True,
          small_clip_card_vs_cpu_max_box_px=box_err, tolerance_px=1)
@@ -817,8 +1026,9 @@ def main():
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--profile', metavar='DIR', default=None,
-                        help='also profile one main-path clip with '
-                             'torch.profiler and write the table to DIR')
+                        help='also profile one main-path and one ISM clip '
+                             'with torch.profiler and write the tables to '
+                             'DIR')
     args = parser.parse_args()
     repo = Path(__file__).resolve().parent
     if not (repo / 'retargetvid_tpu_torch' / 'csrc').is_dir():
@@ -843,6 +1053,12 @@ def main():
         'multi_ratio': phase_multi_ratio(card, bench, program),
         'two_dispatch': phase_two_dispatch(card, bench),
     }
+    ism_program, record['launches_by_path']['ism_main_path'] = phase_ism(
+        card, bench, args.profile)
+    record['launches_by_path']['ism_multi_ratio'] = phase_multi_ratio(
+        card, bench, ism_program, ism_params(), 'ism_multi_ratio')
+    record['launches_by_path']['ism_two_dispatch'] = phase_two_dispatch(
+        card, bench, ism_params(), 'ism_two_dispatch')
     with exact_float32():
         phase_exact(card)
     if 'jax' in sys.modules:

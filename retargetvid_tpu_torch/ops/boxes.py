@@ -1,9 +1,9 @@
 """Destination size and crop boxes.
 
-Port of ``retargetvid_tpu/ops/boxes.py:calc_dest_size, compute_crop_boxes``
-(reference ``sc_calc_dest_size``, ``smartVidCrop.py:946-977``, and
-``sc_compute_bb``, ``:979-1048``): the per-frame clamping loop is one
-elementwise pass over the center series.
+Port of ``retargetvid_tpu/ops/boxes.py:calc_dest_size, compute_crop_boxes,
+shift_time`` (reference ``sc_calc_dest_size``, ``smartVidCrop.py:946-977``,
+``sc_compute_bb``, ``:979-1048``, and ``sc_shift_time``, ``:1740-1746``):
+the per-frame clamping loop is one elementwise pass over the center series.
 """
 
 from __future__ import annotations
@@ -12,7 +12,7 @@ import math
 
 import torch
 
-__all__ = ["calc_dest_size", "compute_crop_boxes"]
+__all__ = ["calc_dest_size", "compute_crop_boxes", "shift_time"]
 
 
 def calc_dest_size(w_orig: int, h_orig: int, out_ratio: str) -> dict:
@@ -98,3 +98,14 @@ def compute_crop_boxes(dxs: torch.Tensor, dys: torch.Tensor, *,
 
     boxes = torch.stack([x1, y1, x2, y2], dim=1).to(torch.int32)
     return boxes, fbb_w, fbb_h
+
+
+def shift_time(boxes: torch.Tensor, shift: int) -> torch.Tensor:
+    """Shift the (T, 4) boxes ``shift`` frames earlier: rows [shift:] move
+    to [0:T-shift] and the last ``shift`` rows repeat row T-1."""
+    if shift <= 0:
+        return boxes
+    t = boxes.shape[0]
+    idx = torch.clamp(torch.arange(t, device=boxes.device) + shift,
+                      max=t - 1)
+    return boxes[idx]

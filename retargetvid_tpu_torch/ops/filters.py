@@ -1,7 +1,8 @@
-"""Temporal smoothing of the center series: Butterworth filtfilt + LOESS.
+"""Temporal smoothing of the center series: Butterworth filtfilt, then
+LOESS or Savitzky-Golay.
 
 Port of ``retargetvid_tpu/ops/filters.py:butter_lowpass_filter,
-loess_smooth, smooth_segments`` for ``lp_filt=1, loess_filt=1`` (reference
+savgol_smooth, loess_smooth, smooth_segments`` (reference
 ``smartVidCrop.py:1599-1734``), batched over segments and the two axes:
 
 - **Butterworth filtfilt**: the design is scipy's, on the host, as
@@ -16,8 +17,11 @@ loess_smooth, smooth_segments`` for ``lp_filt=1, loess_filt=1`` (reference
   quadratic least-squares fit, solved in a window-centred, scaled basis on
   mean-centred values with one step of iterative refinement (the raw basis
   was 15 px off in float32).
-
-Savitzky-Golay (``loess_filt=0``) is not ported.
+- **Savitzky-Golay** (``loess_filt=0``): the window is data (``min(fps*w,
+  cl-2)`` forced odd), so scipy's coefficients and the ``interp`` edge
+  fits (least-squares projections over the first and last window) are
+  built on the host for every reachable odd window, zero-padded to the
+  widest; each row gathers its window's rows and applies them at once.
 """
 
 from __future__ import annotations
@@ -28,7 +32,8 @@ import numpy as np
 import torch
 from torch.nn import functional as F
 
-__all__ = ["butter_lowpass_filter", "loess_smooth", "smooth_segments"]
+__all__ = ["butter_lowpass_filter", "savgol_smooth", "loess_smooth",
+           "smooth_segments"]
 
 
 def _safe_div(a, b):
@@ -128,6 +133,80 @@ def butter_lowpass_filter(x: torch.Tensor, n: torch.Tensor, cutoff: float,
     return torch.where(nn_ > padlen, filt, fallback)
 
 
+@functools.lru_cache(maxsize=256)
+def _savgol_bank(window: int, degree: int):
+    """scipy ``savgol_coeffs`` and the (half, window) head and tail rows of
+    the edge fit's projection, float32 numpy (the JAX package's values)."""
+    from scipy.signal import savgol_coeffs
+    coeffs = savgol_coeffs(window, degree)
+    half = window // 2
+    vand = np.vander(np.arange(window), degree + 1, increasing=True)
+    proj = vand @ np.linalg.pinv(vand)
+    return (coeffs.astype(np.float32), proj[:half].astype(np.float32),
+            proj[window - half:].astype(np.float32))
+
+
+@functools.lru_cache(maxsize=16)
+def _savgol_banks(windows: tuple, degree: int):
+    """Every window's coefficients, centred in the widest window, and its
+    head/tail rows in the leading corner: (NB, W), (NB, W//2, W) x 2."""
+    wmax = max(windows)
+    hmax = wmax // 2
+    coeffs = np.zeros((len(windows), wmax), np.float32)
+    head = np.zeros((len(windows), hmax, wmax), np.float32)
+    tail = np.zeros_like(head)
+    for b, win in enumerate(windows):
+        c, hd, tl = _savgol_bank(win, degree)
+        half = win // 2
+        coeffs[b, hmax - half:hmax + half + 1] = c
+        head[b, :half, :win] = hd
+        tail[b, :half, :win] = tl
+    return coeffs, head, tail
+
+
+def savgol_smooth(x: torch.Tensor, n: torch.Tensor, window: torch.Tensor,
+                  degree: int, window_bank: tuple) -> torch.Tensor:
+    """``savgol_filter(x[:n], window, degree, mode='interp')`` per row of
+    the (B, L) padded series, each with its live length ``n`` and odd
+    ``window`` (B,).  A row whose window is not in ``window_bank`` (odd,
+    ascending from 5 by 2) is returned as it is."""
+    b, L = x.shape
+    dev = x.device
+    c_np, h_np, t_np = _savgol_banks(tuple(window_bank), degree)
+    wmax = c_np.shape[1]
+    hmax = wmax // 2
+    win = window.to(torch.int64)[:, None]
+    nn_ = n.to(torch.int64)[:, None]
+    first = window_bank[0]
+    in_bank = (win >= first) & (win <= window_bank[-1]) & (win % 2 == 1)
+    bi = torch.clamp(torch.div(win - first, 2, rounding_mode='floor'), 0,
+                     len(window_bank) - 1)[:, 0]
+    coeffs = torch.from_numpy(c_np).to(dev)[bi]                  # (B, W)
+    head = torch.from_numpy(h_np).to(dev)[bi]                   # (B, H, W)
+    tail = torch.from_numpy(t_np).to(dev)[bi]
+    pos = torch.arange(L, device=dev)[None, :]
+    live = pos < nn_
+
+    # Interior: correlation with the zero-extended live series.
+    xz = torch.where(live, x, torch.zeros_like(x))
+    mid = (F.pad(xz, (hmax, hmax)).unfold(1, wmax, 1)
+           * coeffs[:, None, :]).sum(dim=2)
+    # Edges: polynomial fits over the first and the last window.
+    k = torch.arange(wmax, device=dev)[None, :]
+    head_vals = torch.einsum('bhw,bw->bh', head,
+                             _gather(x, torch.clamp(k, max=L - 1).expand(
+                                 b, -1)))
+    tail_vals = torch.einsum('bhw,bw->bh', tail, _gather(
+        x, torch.clamp(nn_ - win + k, 0, L - 1)))
+    half = torch.div(win, 2, rounding_mode='floor')
+    out = torch.where(pos < half, _gather(
+        head_vals, torch.clamp(pos, max=hmax - 1).expand(b, -1)), mid)
+    tpos = pos - (nn_ - half)
+    out = torch.where((tpos >= 0) & live, _gather(
+        tail_vals, torch.clamp(tpos, 0, hmax - 1)), out)
+    return torch.where(live & in_bank, out, x)
+
+
 def loess_smooth(y: torch.Tensor, n: torch.Tensor, window: torch.Tensor,
                  degree: int, max_window: int) -> torch.Tensor:
     """LOESS over uniformly spaced (B, L) series, pyloess parity.
@@ -195,15 +274,13 @@ def smooth_segments(dxi: torch.Tensor, dyi: torch.Tensor,
                     n_segments, *, fps: float, loess_filt: int,
                     w_secs: float, degree: int, lp_filt: int,
                     lp_cutoff: float, lp_order: int, max_len: int):
-    """Low-pass + LOESS every segment of the (T,) center series.
+    """Low-pass + LOESS (``loess_filt``) or Savitzky-Golay every segment
+    of the (T,) center series.
 
     Returns (dxs, dys, dxl, dyl): smoothed and low-passed series.  Segments
     shorter than 10 frames keep the low-passed series (reference
     ``loess_handler``).
     """
-    if not loess_filt:
-        raise NotImplementedError(
-            'Savitzky-Golay smoothing (loess_filt=0) is not ported yet')
     dev = dxi.device
     t_out = dxi.shape[0]
     s = seg_starts.shape[0]
@@ -230,7 +307,12 @@ def smooth_segments(dxi: torch.Tensor, dyi: torch.Tensor,
         low = butter_lowpass_filter(series, cl2, lp_cutoff, fps, lp_order)
     else:
         low = series
-    sm = loess_smooth(low, cl2, window2, degree, max_window=max(w_static, 5))
+    if loess_filt:
+        sm = loess_smooth(low, cl2, window2, degree,
+                          max_window=max(w_static, 5))
+    else:
+        sm = savgol_smooth(low, cl2, window2, degree,
+                           tuple(range(5, max(w_static, 5) + 1, 2)))
     sm = torch.where((cl2 < 10)[:, None], low, sm)
 
     mask = (seg_mask & live[:, None]).repeat(2, 1)

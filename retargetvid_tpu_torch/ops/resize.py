@@ -22,7 +22,12 @@ import functools
 import numpy as np
 import torch
 
-__all__ = ["resize", "resize_by_factor", "factor_dst_size", "round_half_up"]
+__all__ = ["resize", "resize_by_factor", "factor_dst_size", "round_half_up",
+           "RESIZE_TYPE_TO_METHOD"]
+
+#: The crop parameters' ``resize_type`` codes as method names (reference
+#: ``smartVidCrop.py:141-143``).
+RESIZE_TYPE_TO_METHOD = {1: 'linear', 2: 'cubic', 3: 'nearest'}
 
 
 def round_half_up(x: torch.Tensor) -> torch.Tensor:

@@ -1,17 +1,20 @@
-"""Empty-center filling (reference ``sc_handle_empty_centers``).
+"""Center-series repairs: empty-center filling and focus freezing.
 
-Port of ``retargetvid_tpu/ops/temporal.py:fill_empty_centers``
-(``smartVidCrop.py:1221-1300``): each run of consecutive invalid centers is
-filled from the next valid center if the run start is closer to a segment
-start than the run end is to a segment end, else from the previous one.
-The focus-stability freeze (``freeze_unstable_segments``) is not ported.
+Port of ``retargetvid_tpu/ops/temporal.py:fill_empty_centers,
+freeze_unstable_segments`` (reference ``sc_handle_empty_centers``,
+``smartVidCrop.py:1221-1300``, and the focus-stability freeze,
+``:2449-2473``): each run of consecutive invalid centers is filled from the
+next valid center if the run start is closer to a segment start than the
+run end is to a segment end, else from the previous one; a short span
+between two focus jumps is frozen to its first center.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-__all__ = ["fill_empty_centers"]
+__all__ = ["fill_empty_centers", "frozen_spans", "freeze_unstable_segments"]
 
 
 def fill_empty_centers(dx, dy, valid, seg_starts, seg_ends, frame_mask):
@@ -51,3 +54,40 @@ def fill_empty_centers(dx, dy, valid, seg_starts, seg_ends, frame_mask):
     out_x = torch.where(valid, dx, torch.where(any_valid, dx[src], dx))
     out_y = torch.where(valid, dy, torch.where(any_valid, dy[src], dy))
     return out_x, out_y
+
+
+def frozen_spans(jump_inds, *, fc_sel: int, skip: int, fps: float,
+                 stab_secs: float) -> list:
+    """The [start, end) spans the focus freeze applies, in order.
+
+    ``jump_inds``: the ascending jump indices, on the host.  Each
+    consecutive pair (i, i+1) spans [jump_i - 1, jump_{i+1} + 1), clipped
+    to [0, fc_sel - 1), and is frozen when its duration ``span * skip /
+    fps`` is at most ``stab_secs``.  The duration is the JAX package's
+    float32 value, which XLA computes as ``span * (skip * (1 / fps))`` with
+    the constant factor folded in float32, so a span at the limit is
+    decided as there (10 * 6 / 30 is 2.0000002 > 2.0, not frozen).
+    """
+    limit = np.float32(stab_secs)
+    rate = np.float32(skip) * (np.float32(1.0) / np.float32(fps))
+    spans = []
+    for a, b in zip(jump_inds[:-1], jump_inds[1:]):
+        start = max(int(a) - 1, 0)
+        end = min(int(b) + 1, int(fc_sel) - 1)
+        dur = np.float32(end - start) * rate
+        if end > start and dur <= limit:
+            spans.append((start, end))
+    return spans
+
+
+def freeze_unstable_segments(dx, dy, jump_inds, *, fc_sel: int, skip: int,
+                             fps: float, stab_secs: float):
+    """Freeze the (T,) center series over each of :func:`frozen_spans` in
+    order: the span takes its first center, which an earlier span may
+    already have frozen."""
+    dx, dy = dx.clone(), dy.clone()
+    for start, end in frozen_spans(jump_inds, fc_sel=fc_sel, skip=skip,
+                                   fps=fps, stab_secs=stab_secs):
+        dx[start:end] = dx[start].clone()
+        dy[start:end] = dy[start].clone()
+    return dx, dy

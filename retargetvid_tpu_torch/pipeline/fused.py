@@ -55,8 +55,6 @@ def make_clip_fn(model, *, source: str, dtype, t_border: int,
     tail gives them.  ``stage(name)``, if given, is a context manager that
     brackets the UNISAL, postprocess and geometry stages (timing).
     """
-    if t_border != -1:
-        raise NotImplementedError('t_border != -1 is not ported yet')
     stage = stage or (lambda name: contextlib.nullcontext())
 
     def fn(sal_frames, sel_idx, sel_mask, fc_sel, true_inds,
@@ -92,7 +90,8 @@ def make_clip_fn(model, *, source: str, dtype, t_border: int,
                     series, borders['border_t'], borders['border_b'],
                     borders['border_l'], borders['border_r'],
                     h_orig=h_orig, w_orig=w_orig, h_process=in_hw[0],
-                    w_process=in_hw[1], w_final=wf, h_final=hf)
+                    w_process=in_hw[1], w_final=wf, h_final=hf,
+                    shift=cfg.shift_time)
 
             if np.ndim(w_final) == 0:
                 out = {**series, **tail(w_final, h_final)}

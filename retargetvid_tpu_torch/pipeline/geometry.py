@@ -5,23 +5,23 @@ _cut_boundary_fixup, geometry_pipeline`` (reference ``smart_vid_crop``,
 ``smartVidCrop.py:2296-2522``):
 
     threshold -> clustering filter (+ cut-boundary map averaging) ->
-    center of mass -> empty-center fill -> per-segment interpolation ->
-    Butterworth low-pass -> LOESS -> crop boxes
+    center of mass -> empty-center fill -> focus-jump scores + freezing ->
+    per-segment interpolation -> Butterworth low-pass -> LOESS/Savitzky-Golay
+    -> crop boxes (+ optional time shift)
 
 over padded shapes: frame counts, segment counts and segment lengths are
 data, only the bucket sizes are shapes.  The reference's sequential
 cut-boundary averaging (frame i's *filtered* map feeds frame i+1's filter
 input near shot cuts) is reproduced by recomputing exactly the affected
-frames in order, up to the clip's real redo count.
+frames in order, up to the clip's real redo count.  With
+``resize_factor != 1`` every filter call, the redo's included, runs on the
+factor-downscaled map and is upscaled back.
 
-Only the last step, the crop boxes, reads the output size: multi-ratio
-serving runs :func:`geometry_series` once and :func:`geometry_boxes` per
-ratio.  (The chain syncs with the host for its loop bounds, so it is not
-vmapped over ratios as the JAX package does.)
-
-Not ported (``NotImplementedError``): ``resize_factor != 1``,
-``focus_stability``, ``tpu_adaptive_link``, ``shift_time > 0`` and
-Savitzky-Golay smoothing.
+Only the last step, the crop boxes and their time shift, reads the output
+size: multi-ratio serving runs :func:`geometry_series` once and
+:func:`geometry_boxes` per ratio.  (The chain syncs with the host for its
+loop bounds, so it is not vmapped over ratios as the JAX package does.)
+Every crop-parameter setting of the JAX chain is served.
 """
 
 from __future__ import annotations
@@ -31,13 +31,16 @@ import dataclasses
 import numpy as np
 import torch
 
-from retargetvid_tpu_torch.ops.boxes import compute_crop_boxes
+from retargetvid_tpu_torch.ops.boxes import compute_crop_boxes, shift_time
 from retargetvid_tpu_torch.ops.center import center_of_mass
-from retargetvid_tpu_torch.ops.clustering import filter_frames
+from retargetvid_tpu_torch.ops.clustering import clustering_filter
 from retargetvid_tpu_torch.ops.filters import smooth_segments
+from retargetvid_tpu_torch.ops.focus import jump_saliency_scores
 from retargetvid_tpu_torch.ops.interpolate import interpolate_segments
-from retargetvid_tpu_torch.ops.morphology import close as morph_close
-from retargetvid_tpu_torch.ops.temporal import fill_empty_centers
+from retargetvid_tpu_torch.ops.temporal import (
+    fill_empty_centers,
+    freeze_unstable_segments,
+)
 from retargetvid_tpu_torch.ops.threshold import threshold_saliency
 
 __all__ = ["GeometryConfig", "geometry_pipeline", "geometry_series",
@@ -125,37 +128,18 @@ class GeometryConfig:
             shift_time=cp['shift_time'],
         )
 
-    def check_ported(self) -> None:
-        """Raise for the settings this port does not implement yet."""
-        unported = []
-        if self.resize_factor != 1.0:
-            unported.append('resize_factor != 1')
-        if self.focus_stability:
-            unported.append('focus_stability')
-        if self.adaptive_min_samples is not None:
-            unported.append('tpu_adaptive_link')
-        if self.shift_time > 0:
-            unported.append('shift_time > 0')
-        if not self.loess_filt:
-            unported.append('Savitzky-Golay (loess_filt=0)')
-        if not self.com_km:
-            unported.append('com_km=False')
-        if unported:
-            raise NotImplementedError(
-                'not ported yet: ' + ', '.join(unported))
-
 
 def _refilter(inp: torch.Tensor, cfg: GeometryConfig) -> torch.Tensor:
-    """Clustering filter of (K, H, W) maps with the caller-side gates:
-    close the surviving blob, pass the input through when there are too
-    few points or no cluster."""
-    out, any_valid, n_points = filter_frames(
+    """Clustering filter of (K, H, W) maps at process resolution, the
+    ``resize_factor`` roundtrip and the caller-side gates included (pass 1
+    and every cut-boundary redo)."""
+    return clustering_filter(
         inp, min_cluster_size=cfg.hdbscan_min, select_sum=cfg.select_sum,
-        bridge=cfg.bridge, cc_iters=cfg.cc_iters)
-    if cfg.op_close:
-        out = torch.where(any_valid[:, None, None], morph_close(out, 5), out)
-    use = (n_points > cfg.hdbscan_min + 1) & any_valid
-    return torch.where(use[:, None, None], out, inp)
+        resize_factor=cfg.resize_factor, resize_type=cfg.resize_type,
+        op_close=cfg.op_close, bridge=cfg.bridge, cc_iters=cfg.cc_iters,
+        min_points=cfg.hdbscan_min + 1,
+        adaptive_min_samples=cfg.adaptive_min_samples,
+        adaptive_max_radius=cfg.adaptive_max_radius)
 
 
 def _cut_boundary_fixup(raw: torch.Tensor, pass1: torch.Tensor,
@@ -199,13 +183,12 @@ def geometry_series(smaps, sel_mask, fc_sel, true_inds,
                     t_out: int) -> dict:
     """Steps 1-7 of the chain, which no output ratio enters: threshold,
     clustering filter and cut-boundary redo, centers, empty-center fill,
-    per-segment interpolation and smoothing.
+    focus stability, per-segment interpolation and smoothing.
 
     ``smaps`` (T_sel_pad, H, W); ``sel_mask``/``true_inds`` (T_sel_pad,);
     segment arrays (S,); ``fc_sel``/``n_segments`` live counts (ints or
     0-d tensors).  Returns the filtered maps ``sm`` and the series.
     """
-    cfg.check_ported()
     smaps = smaps.to(torch.float32)
     t_sel_pad = smaps.shape[0]
     dev = smaps.device
@@ -238,7 +221,19 @@ def geometry_series(smaps, sel_mask, fc_sel, true_inds,
     s_ends = torch.where(live_seg, seg_sel_ends, sentinel)
     cx, cy = fill_empty_centers(cx, cy, valid, s_starts, s_ends,
                                 frame_mask=sel_mask)
+
     jumps = torch.full((t_sel_pad,), 255.0, dtype=torch.float32, device=dev)
+    if cfg.focus_stability:
+        # Scores of the moves between consecutive centers over the filtered
+        # maps; a low one is a focus jump, and a short span between two
+        # jumps is frozen to its first center (smartVidCrop.py:2425-2473).
+        jumps = torch.where(sel_mask, jump_saliency_scores(
+            sm, cx, cy, min_d_jump=cfg.min_d_jump), jumps)
+        is_jump = (jumps < cfg.foces_stab_t) & sel_mask \
+            & (torch.arange(t_sel_pad, device=dev) >= 1)
+        cx, cy = freeze_unstable_segments(
+            cx, cy, torch.nonzero(is_jump)[:, 0].tolist(), fc_sel=fc_sel,
+            skip=cfg.skip, fps=fps, stab_secs=cfg.foces_stab_s)
 
     max_samples, max_len = t_sel_pad, t_out
     dxi = interpolate_segments(cx, true_inds, seg_starts, seg_ends,
@@ -264,15 +259,19 @@ def geometry_series(smaps, sel_mask, fc_sel, true_inds,
 
 def geometry_boxes(series: dict, border_t, border_b, border_l, border_r,
                    *, h_orig: int, w_orig: int, h_process: int,
-                   w_process: int, w_final, h_final) -> dict:
-    """Step 8, the only one an output ratio enters: crop boxes of the
-    smoothed series for one (``w_final``, ``h_final``)."""
+                   w_process: int, w_final, h_final,
+                   shift: int = 0) -> dict:
+    """Steps 8-9, the only ones an output ratio enters: crop boxes of the
+    smoothed series for one (``w_final``, ``h_final``), shifted ``shift``
+    frames earlier over the padded (t_out, 4) rows as in JAX (so the last
+    ``shift`` rows of a clip shorter than t_out take a padded row's box)."""
     boxes, fbb_w, fbb_h = compute_crop_boxes(
         series['dxs'], series['dys'], w_orig=w_orig, h_orig=h_orig,
         w_process=w_process, h_process=h_process, w_final=w_final,
         h_final=h_final, border_t=border_t, border_b=border_b,
         border_l=border_l, border_r=border_r)
-    return {'boxes': boxes, 'fbb_w': fbb_w, 'fbb_h': fbb_h}
+    return {'boxes': shift_time(boxes, shift), 'fbb_w': fbb_w,
+            'fbb_h': fbb_h}
 
 
 def geometry_pipeline(smaps, sel_mask, fc_sel, true_inds,
@@ -291,5 +290,6 @@ def geometry_pipeline(smaps, sel_mask, fc_sel, true_inds,
     h, w = smaps.shape[1:]
     return {**geometry_boxes(series, border_t, border_b, border_l, border_r,
                              h_orig=h_orig, w_orig=w_orig, h_process=h,
-                             w_process=w, w_final=w_final, h_final=h_final),
+                             w_process=w, w_final=w_final, h_final=h_final,
+                             shift=cfg.shift_time),
             **series}

@@ -47,9 +47,10 @@ def _host_tables(probs, skip, port: bool):
             TRANS_THRESHOLD,
             sample_frames,
         )
-    selected, true_inds, m2o = sample_frames(FC, probs, skip, FC)
+    fc = len(probs)
+    selected, true_inds, m2o = sample_frames(fc, probs, skip, fc)
     seg = scenes.fix_scene_bounds(
-        scenes.predictions_to_scenes(probs, TRANS_THRESHOLD), FC)
+        scenes.predictions_to_scenes(probs, TRANS_THRESHOLD), fc)
     return selected, true_inds, seg, scenes.scenes_to_selected(seg, m2o)
 
 

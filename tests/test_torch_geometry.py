@@ -228,11 +228,64 @@ def test_geometry_pipeline_exact_boxes():
                                    atol=1e-2)
 
 
-def test_unported_settings_raise():
-    from retargetvid_tpu_torch.config import sc_init_crop_params
-    from retargetvid_tpu_torch.pipeline.geometry import GeometryConfig
+#: Crop-parameter settings the geometry serves: both presets and each
+#: further knob (over the ICIP preset unless named).
+SETTINGS = {
+    'icip': {},
+    'ism': {'use_best_settings': True},
+    't_border': {'t_border': 10},
+    'shift_time': {'shift_time': 5},
+    'argmax_center': {'com_km': False},
+    'adaptive_link': {'tpu_adaptive_link': True},
+    'cubic_factor4': {'resize_factor': 4, 'resize_type': 2},
+    'nearest_factor4': {'resize_factor': 4, 'resize_type': 3},
+    'focus_stability': {'focus_stability': True},
+    'savgol': {'loess_filt': 0},
+    'ism_no_filter': {'use_best_settings': True, 'clust_filt': False},
+}
 
-    GeometryConfig.from_crop_params(sc_init_crop_params()).check_ported()
-    ism = sc_init_crop_params(use_best_settings=True)
-    with pytest.raises(NotImplementedError, match='resize_factor'):
-        GeometryConfig.from_crop_params(ism).check_ported()
+
+@pytest.mark.parametrize('name', sorted(SETTINGS))
+def test_every_setting_runs(name):
+    """Each setting's GeometryConfig drives border detection and the whole
+    chain on a tiny volume: boxes inside the frame (less the borders) at
+    the bordered destination size, finite series."""
+    from retargetvid_tpu_torch.config import sc_init_crop_params
+    from retargetvid_tpu_torch.ops.border import border_detection
+    from retargetvid_tpu_torch.pipeline.geometry import (
+        GeometryConfig,
+        geometry_pipeline,
+    )
+
+    knobs = dict(SETTINGS[name])
+    cp = sc_init_crop_params(use_best_settings=knobs.pop(
+        'use_best_settings', False))
+    cp.update(knobs)
+    cfg = GeometryConfig.from_crop_params(cp)
+    fc, h, w, t_sel_pad, s_pad = 60, 48, 80, 32, 4
+    rng = np.random.default_rng(12)
+    maps = np.zeros((t_sel_pad, h, w), np.uint8)
+    yy, xx = np.mgrid[0:h, 0:w]
+    for i in range(11):
+        cx, cy = w * (0.2 + 0.06 * i), h * (0.5 + 0.3 * np.sin(i))
+        blob = 250 * np.exp(-((yy - cy) ** 2 + (xx - cx) ** 2) / 60.0)
+        maps[i] = np.clip(blob + (rng.random((h, w)) < 0.03) * 200, 0, 255)
+    maps[:, :, :6] = 0                          # a dark left band
+    vol = torch.from_numpy(maps)
+    borders = border_detection(vol.to(torch.float32), cp['t_border'],
+                               2 * h, 2 * w)
+    out = geometry_pipeline(
+        vol, torch.arange(t_sel_pad) < 11, 11,
+        torch.arange(t_sel_pad) * 6, torch.tensor([0, 30, 0, 0]),
+        torch.tensor([29, 59, 0, 0]), torch.tensor([0, 5, 0, 0]),
+        torch.tensor([4, 10, 0, 0]), 2, fc, *borders.values(), cfg=cfg,
+        fps=30.0, h_orig=2 * h, w_orig=2 * w, w_final=2 * w // 3,
+        h_final=2 * h, t_out=64)
+    boxes = out['boxes'].numpy()[:fc]
+    bl, br = int(borders['border_l']), int(borders['border_r'])
+    assert (bl > 0) == (name == 't_border')
+    assert (boxes[:, 0] >= bl).all() and (boxes[:, 2] <= 2 * w - br).all()
+    assert (boxes[:, 1] >= 0).all() and (boxes[:, 3] <= 2 * h).all()
+    assert (boxes[:, 2] - boxes[:, 0] == int(out['fbb_w'])).all()
+    assert (boxes[:, 3] - boxes[:, 1] == int(out['fbb_h'])).all()
+    assert np.isfinite(out['dxs'].numpy()[:fc]).all()

@@ -19,16 +19,17 @@ torch.set_num_threads(1)
 FC, H, W = 48, 72, 128
 
 
-def clip_frames():
-    """The fc=48, 72x128 clip of ``tests/test_oneshot.py``: a blob that
-    moves, then stops on a brighter background."""
+def clip_frames(fc=FC):
+    """The fc=48, 72x128 clip of ``tests/test_oneshot.py`` (or its
+    ``fc``-frame version): a blob that moves, then stops on a brighter
+    background."""
     yy, xx = np.mgrid[0:H, 0:W]
-    frames = np.zeros((FC, H, W, 3), np.uint8)
-    for t in range(FC):
-        cx = W * (0.2 + 0.6 * t / FC) if t < FC // 2 else W * 0.75
+    frames = np.zeros((fc, H, W, 3), np.uint8)
+    for t in range(fc):
+        cx = W * (0.2 + 0.6 * t / fc) if t < fc // 2 else W * 0.75
         blob = 225 * np.exp(-(((yy - H * 0.5) ** 2 + (xx - cx) ** 2)
                               / 250.0))
-        frames[t] = np.clip(blob[..., None] + (10 if t < FC // 2 else 60),
+        frames[t] = np.clip(blob[..., None] + (10 if t < fc // 2 else 60),
                             0, 255).astype(np.uint8)
     return frames
 
