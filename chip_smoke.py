@@ -3,16 +3,18 @@
 
     python3 chip_smoke.py
 
-Run from the root of a checkout.  It drives the port's main path -- the
-one-shot clip program, raw frames to crop boxes -- at full model width and
-fails (exit code != 0) if any phase fails:
+Run from the root of a checkout.  It drives the port's paths -- the
+one-shot clip program, raw frames to crop boxes, the two-dispatch path, and
+the streaming ingest with ``smart_vid_crop`` and the ``crop`` command -- at
+full model width and fails (exit code != 0) if any phase fails:
 
   (a) build: compile every CUDA kernel of the port from ``csrc/`` (one
       ``nvcc`` per source, started together) and report the seconds;
   (b) kernel vs plain version: the saliency-postprocess kernel against its
       plain PyTorch version at the main path's shape (96, 140, 250) float32
-      and at further shapes (one frame, ragged, larger than a cluster holds
-      on chip, small), on wide-range inputs and on an unaligned view; all
+      and at further shapes (the streaming path's chunk (32, 140, 250), one
+      frame, ragged, larger than a cluster holds on chip, small), on
+      wide-range inputs and on an unaligned view; all
       -inf frames give zeros, constant frames 255; the kernel must be
       bit-equal (it fails on any differing pixel and reports the count).
       Times beside the bytes bound: ``ms_device`` (cold L2) and
@@ -42,6 +44,18 @@ fails (exit code != 0) if any phase fails:
       factor-4 filter roundtrip, focus stability, Savitzky-Golay, the
       order-2 Butterworth), each with its launches, the focus jump pairs
       and the frames frozen per clip;
+  (j) streaming: ``crop_stream`` and ``ism_crop_stream`` feed each bench
+      clip as host uint8 in 256-frame chunks through ``segment_chunks``
+      (full-width float32 TransNet window plan and ``SaliencyPredictor``,
+      one kernel launch per 32 picks) and ``smart_vid_crop(vid_data=...)``
+      at 1:3, in turns with the one-shot window-plan program (float32 as
+      well) on the same clips: per-clip times, their ratio, the registry's
+      stage times, picks and launches per clip;
+  (k) ``cli_crop_pickle``: the 12-shot clip written as a reference-format
+      ``.pkl`` (its 11 cut indices as ``trans_inds``) through
+      ``retargetvid_tpu_torch.cli.main(['crop', ..., '--save-vid'])``,
+      plain and with ``--best-settings``: the boxes file, the cropped
+      ``_sc.pkl`` and ``ceil(picks / 32)`` launches;
   (d) exactness, in float32 with TF32 off, under the ICIP and the ISM
       preset: the main-path clip once through the kernel and once through
       the plain postprocess gives identical boxes; each ratio of
@@ -53,13 +67,16 @@ fails (exit code != 0) if any phase fails:
       detection, time shift, argmax center, adaptive linking, cubic and
       nearest factor-4 downscales); the ISM geometry chain on a saliency
       volume whose focus jumps gives the same jump pairs and frozen spans
-      on the card and on the CPU, and boxes within 1 px; and the windowed
-      one-shot probabilities equal ``TransNetPredictor``'s within 1e-5.
+      on the card and on the CPU, and boxes within 1 px; the windowed
+      one-shot probabilities equal ``TransNetPredictor``'s within 1e-5;
+      and a 96-frame 72x128 clip through ``segment_chunks`` (3 read batches
+      of 40) and ``smart_vid_crop`` gives the same picks and shots on the
+      card and on the CPU, boxes within 1 px, under both presets.
 
-``--profile DIR`` adds one ``torch.profiler`` run of a main-path clip and
-one of an ISM clip (device busy time, idle share, kernel launches, the
-postprocess kernel's own device time; the per-operator tables go to
-``DIR/profile_main_path.txt`` and ``DIR/profile_ism_main_path.txt``).
+``--profile DIR`` adds one ``torch.profiler`` run of a clip on each of
+the main path, the ISM main path and the two streaming phases (device busy
+time, idle share, kernel launches, the postprocess kernel's own device
+time; the per-operator tables go to ``DIR/profile_<phase>.txt``).
 
 Each phase prints one JSON line carrying the card's name and power limit;
 then a line with every kernel's record (with its launches on each path),
@@ -179,9 +196,13 @@ def phase_build(card):
 #: The main path's postprocess input: 81 picks padded to 96 frames of the
 #: 140x250 saliency map.
 MAIN_SHAPE = (96, 140, 250)
-#: Further shapes the kernel is held at: one frame; a ragged frame
-#: (hw % 4 != 0); frames larger than a cluster holds on chip; small frames.
-EXTRA_SHAPES = ((1, 140, 250), (3, 37, 53), (2, 720, 1280), (5, 32, 128))
+#: The streaming path's postprocess input: one ``SaliencyPredictor`` chunk.
+CHUNK_SHAPE = (32, 140, 250)
+#: Further shapes the kernel is held at: the chunk; one frame; a ragged
+#: frame (hw % 4 != 0); frames larger than a cluster holds on chip; small
+#: frames.
+EXTRA_SHAPES = (CHUNK_SHAPE, (1, 140, 250), (3, 37, 53), (2, 720, 1280),
+                (5, 32, 128))
 #: (scale, offset) of wide-range inputs ``randn * scale + offset`` at the
 #: main shape, for the kernel's division: exp spanning many decades,
 #: subnormal exp values beside normal maxima, and maxima above 2^125.
@@ -277,21 +298,32 @@ def phase_kernel(card):
     ms_call = call_ms(lambda: saliency_postprocess(logp))
     plain_ms_call = call_ms(lambda: saliency_postprocess_reference(logp))
     del cold
-    n_px = logp.numel()
-    moved = n_px * 4 + n_px * 1                   # read f32, write uint8
-    ops = n_px * 4                                # exp, max, divide, scale
-    bound_ms = max(moved / H100_BYTES_PER_S, ops / H100_FP32_FLOPS) * 1e3
-    bound_by = ('bytes' if moved / H100_BYTES_PER_S
-                >= ops / H100_FP32_FLOPS else 'operations')
+    bound_ms, bound_by, moved = kernel_bound(MAIN_SHAPE)
     t, h, w = MAIN_SHAPE
     plan = launch_plan(t, h * w)
+
+    # The streaming path's chunk: 16 inputs of 4.48 MB (71.7 MB) cycle
+    # through the L2.
+    chunk_cold = [log_maps(CHUNK_SHAPE, seed=20 + i)[0] for i in range(16)]
+    chunk_bound, chunk_by, _ = kernel_bound(CHUNK_SHAPE)
+    chunk = {'shape': list(CHUNK_SHAPE),
+             'plan': launch_plan(CHUNK_SHAPE[0],
+                                 CHUNK_SHAPE[1] * CHUNK_SHAPE[2])._asdict(),
+             'ms_device': device_ms(saliency_postprocess, chunk_cold),
+             'ms_device_warm': device_ms(saliency_postprocess,
+                                         chunk_cold[:1]),
+             'plain_ms': device_ms(saliency_postprocess_reference,
+                                   chunk_cold),
+             'bound_ms': chunk_bound, 'bound_by': chunk_by}
+    chunk['bound_share'] = chunk_bound / chunk['ms_device']
+    del chunk_cold
     emit(card, phase='kernel', kernel='saliency_postprocess',
          shape=list(MAIN_SHAPE), plan=plan._asdict(), cases=cases,
          max_abs_err=max_err, tolerance='0 LSB', ms_device=ms_dev,
          ms_device_warm=ms_dev_warm, ms_call=ms_call, plain_ms=plain_ms,
          plain_ms_call=plain_ms_call, same_bytes_cast_ms=cast_ms,
          bound_ms=bound_ms, bound_by=bound_by,
-         bound_share=bound_ms / ms_dev, bytes=moved)
+         bound_share=bound_ms / ms_dev, bytes=moved, chunk=chunk)
     return {'name': 'saliency_postprocess', 'route': 'cuda',
             'source': 'retargetvid_tpu_torch/csrc/saliency_postprocess.cu',
             'replaces': 'retargetvid_tpu/ops/pallas_kernels.py:39',
@@ -301,7 +333,18 @@ def phase_kernel(card):
             'plain_ms': plain_ms, 'bound_ms': bound_ms, 'bound_by': bound_by,
             # No single PyTorch call computes exp + per-frame max-normalize
             # + uint8 quantization.
-            'library_ms': None}
+            'library_ms': None, 'chunk': chunk}
+
+
+def kernel_bound(shape):
+    """The postprocess's least time on an H100 at ``shape``: (ms, what
+    bounds it, bytes moved)."""
+    n_px = int(np.prod(shape))
+    moved = n_px * 4 + n_px * 1                   # read f32, write uint8
+    ops = n_px * 4                                # exp, max, divide, scale
+    by_bytes, by_ops = moved / H100_BYTES_PER_S, ops / H100_FP32_FLOPS
+    return (max(by_bytes, by_ops) * 1e3,
+            'bytes' if by_bytes >= by_ops else 'operations', moved)
 
 
 def build_models(seed=0):
@@ -454,7 +497,8 @@ def phase_main_path(card, bench, profile_dir=None):
          n_segments=[o['n_segments'] for o in outs],
          stage_median_ms=stages, postprocess_launches=launches)
     if profile_dir is not None:
-        profile_clip(card, program, bench.clips[0], bench.cp, bench.kw,
+        profile_clip(card, lambda: program.run(bench.clips[0], bench.cp,
+                                               **bench.kw),
                      Path(profile_dir), 'main_path')
     return program, outs, stages, launches
 
@@ -483,7 +527,8 @@ def phase_ism(card, bench, profile_dir=None):
          **focus_stats(outs, cp, bench.fps), boxes_in_frame_at_dest=True,
          stage_median_ms=stages, postprocess_launches=launches)
     if profile_dir is not None:
-        profile_clip(card, program, bench.clips[0], cp, bench.kw,
+        profile_clip(card, lambda: program.run(bench.clips[0], cp,
+                                               **bench.kw),
                      Path(profile_dir), 'ism_main_path')
     return program, launches
 
@@ -685,10 +730,177 @@ def phase_two_dispatch(card, bench, cp=None, phase='two_dispatch'):
     return launches
 
 
-def profile_clip(card, program, clip, cp, kw, out_dir: Path, name: str):
-    """``torch.profiler`` over one more clip: device busy time against the
-    wall time, kernel launches, and the per-operator table (written to
-    ``out_dir/profile_<name>.txt``)."""
+def stream_chunks(frames, size=256):
+    """``(chunk, start)`` pairs of ``frames``, as the decoder hands them."""
+    return ((frames[s:s + size], s) for s in range(0, len(frames), size))
+
+
+def stream_crop(frames, cp, transnet_fn, saliency_fn, device=None,
+                fps=30.0):
+    """One clip through the streaming ingest (``segment_chunks``) and
+    ``smart_vid_crop(vid_data=...)``; returns (vid_data, results, stage
+    seconds of the timing registry)."""
+    from retargetvid_tpu_torch.pipeline.crop import smart_vid_crop
+    from retargetvid_tpu_torch.pipeline.ingest import segment_chunks
+    from retargetvid_tpu_torch.utils.timing import sc_init_time, sc_times
+    n, h, w = frames.shape[:3]
+    info = {'fps': fps, 'frame_count': n, 'width': w, 'height': h}
+    sc_init_time()
+    vd = segment_chunks(info, stream_chunks(frames), cp, transnet_fn,
+                        saliency_fn, device=device)
+    ingest = sc_times()
+    vd, res = smart_vid_crop('clip', cp, save_vid=False, vid_data=vd,
+                             device=device)
+    return vd, res, {**ingest, **sc_times()}
+
+
+def expect_chunk_launches(path, launches, picks, chunk=32):
+    want = -(-picks // chunk)
+    if launches != want:
+        fail(f'{path}: {launches} saliency_postprocess launches for {picks} '
+             f'picks (expected {want}, one per chunk of {chunk})')
+
+
+def phase_crop_stream(card, bench, cp=None, phase='crop_stream',
+                      profile_dir=None):
+    """The streaming path on the bench clips (host uint8 frames in
+    256-frame chunks), in turns with the one-shot window-plan program on
+    the same clips; ``cp`` defaults to the bench's ICIP parameters.
+    Returns the streaming path's kernel launches."""
+    import torch
+
+    from retargetvid_tpu_torch.kernels.postprocess import saliency_postprocess
+    from retargetvid_tpu_torch.models.transnet import TransNetPredictor
+    from retargetvid_tpu_torch.pipeline.oneshot import (
+        OneShotClipProgram,
+        StageTimer,
+    )
+    from retargetvid_tpu_torch.pipeline.saliency import SaliencyPredictor
+    cp = cp or bench.cp
+    # Both sides in float32, the CLI's precision, so that the ratio holds
+    # only what streaming adds: the upload, the stitched batches and the
+    # host round trip of the maps.
+    tn32 = build_models()[0]
+    transnet_fn = TransNetPredictor(tn32)                # windows
+    saliency_fn = SaliencyPredictor(bench.un).predict    # chunk 32
+    program = OneShotClipProgram(tn32, bench.un, dtype=torch.float32)
+    host = [c.cpu().numpy() for c in bench.clips]
+
+    def stream(frames):
+        return stream_crop(frames, cp, transnet_fn, saliency_fn)
+
+    def oneshot(clip):
+        return program.run(clip, cp, **bench.kw)
+
+    stream(bench.warm.cpu().numpy())
+    oneshot(bench.warm)
+    program.timer = StageTimer()
+    ms = {'stream': [], 'oneshot': []}
+    launches = {'stream': [], 'oneshot': []}
+    stages, picks, series = [], [], []
+    for i, (clip, frames) in enumerate(zip(bench.clips, host)):
+        order = ('stream', 'oneshot') if i % 2 == 0 else ('oneshot',
+                                                          'stream')
+        for name in order:
+            torch.cuda.synchronize()
+            saliency_postprocess.launches = 0
+            t0 = time.perf_counter()
+            if name == 'stream':
+                vd, res, times = stream(frames)
+            else:
+                oneshot(clip)
+            ms[name].append((time.perf_counter() - t0) * 1e3)
+            launches[name].append(saliency_postprocess.launches)
+        check_boxes(np.asarray(vd['bbs']), bench.dest, bench.h, bench.w)
+        if res['result'] != 'smart cropped':
+            fail(f'{phase}: result {res["result"]!r}')
+        picks.append(vd['fc_sel'])
+        series.append({'jumps': np.asarray(vd['jumps']),
+                       'fc_sel': vd['fc_sel']})
+        stages.append(times)
+        expect_chunk_launches(phase, launches['stream'][-1], vd['fc_sel'])
+    expect_launches(f'{phase}, one-shot windowed', sum(launches['oneshot']),
+                    len(bench.clips))
+    one_stages = {k: statistics.median(v)
+                  for k, v in program.timer.times_ms().items()}
+    med = statistics.median(ms['stream'])
+    one_med = statistics.median(ms['oneshot'])
+    extra = focus_stats(series, cp, bench.fps) if cp['focus_stability'] \
+        else {}
+    emit(card, phase=phase, clip=[480, bench.h, bench.w], dtype='float32',
+         tn_plan='windowed', chunk_frames=256, read_batch=cp['read_batch'],
+         per_clip_ms=ms['stream'], median_ms=med,
+         spread_ms=[min(ms['stream']), max(ms['stream'])],
+         frames_per_s=480 / med * 1e3,
+         stage_median_ms={k: statistics.median(t[k] for t in stages) * 1e3
+                          for k in stages[0]},
+         fc_sel=picks, **extra, launches_per_clip=launches['stream'],
+         boxes_in_frame_at_dest=True,
+         oneshot_windowed_f32_per_clip_ms=ms['oneshot'],
+         oneshot_windowed_median_ms=one_med,
+         oneshot_stage_median_ms=one_stages,
+         stream_over_oneshot=med / one_med)
+    if profile_dir is not None:
+        profile_clip(card, lambda: stream(host[0]), Path(profile_dir), phase)
+    return sum(launches['stream'])
+
+
+def phase_cli_crop_pickle(card, bench):
+    """``cli crop`` on the 12-shot clip written as a reference ``.pkl``,
+    plain and with ``--best-settings``; returns the kernel launches."""
+    import pickle
+    import tempfile
+
+    from retargetvid_tpu_torch import cli
+    from retargetvid_tpu_torch.eval.annotations import read_boxes_file
+    from retargetvid_tpu_torch.kernels.postprocess import saliency_postprocess
+    from retargetvid_tpu_torch.pipeline.ingest import sample_frames
+    frames = make_clip(seed=0, shot_len=40)
+    fc = len(frames)
+    trans_inds = list(range(39, fc - 1, 40))            # 11 cuts
+    probs = np.zeros(fc, np.float32)
+    probs[trans_inds] = 1.0
+    picks = len(sample_frames(fc, probs, bench.cp['skip'], fc)[1])
+    runs = {}
+    total = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        pkl = Path(tmp) / 'clip.pkl'
+        with open(pkl, 'wb') as fp:
+            pickle.dump({'fr': bench.fps, 'frame_count': fc, 'w': bench.w,
+                         'h': bench.h, 'frames': frames,
+                         'trans_inds': trans_inds}, fp)
+        for preset, extra in (('icip', []), ('ism', ['--best-settings'])):
+            out = Path(tmp) / f'out_{preset}'
+            saliency_postprocess.launches = 0
+            t0 = time.perf_counter()
+            cli.main(['crop', str(pkl), '--ratio', '1:3', '--save-vid',
+                      '--out', str(out)] + extra)
+            wall = time.perf_counter() - t0
+            launches = saliency_postprocess.launches
+            total += launches
+            expect_chunk_launches(f'cli_crop_pickle {preset}', launches,
+                                  picks)
+            boxes = read_boxes_file(f'{out}.txt')
+            check_boxes(boxes, bench.dest, bench.h, bench.w)
+            with open(Path(tmp) / 'clip_sc.pkl', 'rb') as fp:
+                cropped = pickle.load(fp)
+            want = np.stack([f[y1:y2, x1:x2]
+                             for f, (x1, y1, x2, y2) in zip(frames, boxes)])
+            if not np.array_equal(cropped['frames'], want):
+                fail(f'cli_crop_pickle {preset}: clip_sc.pkl does not hold '
+                     f'the frames cropped by the boxes')
+            runs[preset] = {'wall_s': wall, 'launches': launches,
+                            'sc_frames': list(cropped['frames'].shape)}
+    emit(card, phase='cli_crop_pickle', clip=[fc, bench.h, bench.w],
+         shots=len(trans_inds) + 1, picks=picks, runs=runs,
+         boxes_in_frame_at_dest=True)
+    return total
+
+
+def profile_clip(card, run, out_dir: Path, name: str):
+    """``torch.profiler`` over one more clip (``run()``): device busy time
+    against the wall time, kernel launches, and the per-operator table
+    (written to ``out_dir/profile_<name>.txt``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -696,7 +908,7 @@ def profile_clip(card, program, clip, cp, kw, out_dir: Path, name: str):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        program.run(clip, cp, **kw)
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.events()
@@ -862,36 +1074,28 @@ def focus_volume():
         predictions_to_scenes,
         scenes_to_selected,
     )
+    from retargetvid_tpu_torch.pipeline.geometry import pad_clip_tables
     from retargetvid_tpu_torch.pipeline.ingest import sample_frames
-    fc, h, w, t_pad, s_pad = 150, 140, 250, 32, 4
+    fc, h, w = 150, 140, 250
     probs = np.zeros(fc, np.float32)
     probs[[59, 64]] = 0.9
     _, true_inds, m2o = sample_frames(fc, probs, 6, fc)
     seg = fix_scene_bounds(predictions_to_scenes(probs, 0.1), fc)
     seg_sel = scenes_to_selected(seg, m2o)
+    sel_mask, ti, seg_cols = pad_clip_tables(true_inds, seg, seg_sel)
     rng = np.random.default_rng(7)
     yy, xx = np.mgrid[0:h, 0:w]
     t_sel = len(true_inds)
-    maps = np.zeros((t_pad, h, w), np.float32)
+    maps = np.zeros((len(ti), h, w), np.float32)
     for i, f in enumerate(true_inds):
         cx = w * (0.2 + 0.6 * f / fc) if f < 60 else w * (0.8 - 0.4 * f / fc)
         cy = h * (0.5 + 0.2 * np.sin(f / 10.0))
         maps[i] = 250 * np.exp(-((yy - cy) ** 2 + (xx - cx) ** 2) / 400.0)
         maps[i] += (rng.random((h, w)) < 0.02) * rng.uniform(0, 255, (h, w))
     maps[5] = 0.0
-    ti = np.zeros(t_pad, np.int64)
-    ti[:t_sel] = true_inds
-    ti[t_sel:] = ti[t_sel - 1] + np.arange(1, t_pad - t_sel + 1)
-
-    def pad_seg(arr, col):
-        out = np.zeros(s_pad, np.int64)
-        out[:len(seg)] = np.asarray(arr)[:, col]
-        return torch.from_numpy(out)
-
     return (torch.from_numpy(np.clip(maps, 0, 255).astype(np.uint8)),
-            torch.from_numpy(np.arange(t_pad) < t_sel), t_sel,
-            torch.from_numpy(ti), pad_seg(seg, 0), pad_seg(seg, 1),
-            pad_seg(seg_sel, 0), pad_seg(seg_sel, 1), len(seg)), fc
+            torch.from_numpy(sel_mask), t_sel, torch.from_numpy(ti),
+            *(torch.from_numpy(c) for c in seg_cols), len(seg)), fc
 
 
 def ism_geometry_card_vs_cpu(cp):
@@ -925,6 +1129,56 @@ def ism_geometry_card_vs_cpu(cp):
         fail(f'ISM geometry: card and CPU boxes differ by {box_err} px')
     return {'jump_pairs': len(gi) - 1, 'frozen_spans': gs,
             'frozen_frames': n_frozen, 'max_box_px': box_err}
+
+
+class StreamCuts:
+    """The real TransNet predictor's probabilities raised to 1 where
+    :func:`cut_detector` finds a hard cut between two frames that are not
+    all zero: the streaming contexts' zero overlap and tail are no cuts."""
+
+    def __init__(self, tn, device):
+        from retargetvid_tpu_torch.models.transnet import TransNetPredictor
+        self.real = TransNetPredictor(tn, device=device)
+        self.cuts = cut_detector()
+
+    def __call__(self, context):
+        import torch
+        p = self.real(context)
+        with torch.inference_mode():
+            cut = self.cuts(context[None])[0]
+            live = context.flatten(1).amax(dim=1) > 0
+            live = torch.cat([live[:1], live[1:] & live[:-1]])
+        return np.maximum(p, (cut * live).cpu().numpy())
+
+
+def stream_card_vs_cpu(name, models, cp):
+    """A 96-frame 72x128 clip (a cut at frame 48) through ``segment_chunks``
+    at ``read_batch=40`` and ``smart_vid_crop`` on the card and on the CPU:
+    picks and shots must be equal, boxes within 1 px."""
+    from retargetvid_tpu_torch.pipeline.saliency import SaliencyPredictor
+    frames = small_clip(fc=96)
+    cp = dict(cp, read_batch=40)
+    vds = {}
+    for dev in ('cuda', 'cpu'):
+        tn, un = models[dev]
+        vds[dev] = stream_crop(frames, cp, StreamCuts(tn, dev),
+                               SaliencyPredictor(un, device=dev).predict,
+                               device=dev)[0]
+    gpu, cpu = vds['cuda'], vds['cpu']
+    if gpu['true_inds'] != cpu['true_inds'] or not np.array_equal(
+            gpu['segmentation'], cpu['segmentation']):
+        fail(f'streaming small clip, {name}: picks or shots differ between '
+             f'card and CPU')
+    if len(gpu['segmentation']) != 2:
+        fail(f'streaming small clip, {name}: {len(gpu["segmentation"])} '
+             f'shots, expected 2')
+    box_err = int(np.abs(np.asarray(gpu['bbs'])
+                         - np.asarray(cpu['bbs'])).max())
+    if box_err > 1:
+        fail(f'streaming small clip, {name}: card and CPU boxes differ by '
+             f'{box_err} px')
+    return {'fc_sel': gpu['fc_sel'], 'shots': len(gpu['segmentation']),
+            'max_box_px': box_err}
 
 
 def phase_exact(card):
@@ -1013,22 +1267,25 @@ def phase_exact(card):
                     for d in ('cuda', 'cpu'))
         box_err[name] = card_vs_cpu(name, gpu, cpu)
     focus = ism_geometry_card_vs_cpu(presets['ism'])
+    stream = {name: stream_card_vs_cpu(name, models, cp)
+              for name, cp in presets.items()}
     emit(card, phase='exact_float32', dtype='float32', tf32=False,
          kernel_vs_plain_boxes_differing_frames=n_box_diff,
          ism_geometry_focus_card_vs_cpu=focus,
          fc_sel=fc_sel, n_segments=n_segments,
          windowed_probs_vs_predictor_max_abs=probs_err,
          multi_ratio_boxes_equal_to_run=True,
-         small_clip_card_vs_cpu_max_box_px=box_err, tolerance_px=1)
+         small_clip_card_vs_cpu_max_box_px=box_err,
+         stream_small_clip_card_vs_cpu=stream, tolerance_px=1)
 
 
 def main():
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--profile', metavar='DIR', default=None,
-                        help='also profile one main-path and one ISM clip '
-                             'with torch.profiler and write the tables to '
-                             'DIR')
+                        help='also profile one clip of the main path, the '
+                             'ISM main path and the streaming phases with '
+                             'torch.profiler and write the tables to DIR')
     args = parser.parse_args()
     repo = Path(__file__).resolve().parent
     if not (repo / 'retargetvid_tpu_torch' / 'csrc').is_dir():
@@ -1059,6 +1316,12 @@ def main():
         card, bench, ism_program, ism_params(), 'ism_multi_ratio')
     record['launches_by_path']['ism_two_dispatch'] = phase_two_dispatch(
         card, bench, ism_params(), 'ism_two_dispatch')
+    record['launches_by_path']['crop_stream'] = phase_crop_stream(
+        card, bench, profile_dir=args.profile)
+    record['launches_by_path']['ism_crop_stream'] = phase_crop_stream(
+        card, bench, ism_params(), 'ism_crop_stream', args.profile)
+    record['launches_by_path']['cli_crop_pickle'] = phase_cli_crop_pickle(
+        card, bench)
     with exact_float32():
         phase_exact(card)
     if 'jax' in sys.modules:

@@ -11,7 +11,8 @@ from __future__ import annotations
 
 from typing import Any
 
-__all__ = ["sc_init_crop_params", "TRANS_THRESHOLD", "sal_dims"]
+__all__ = ["sc_init_crop_params", "smart_crop_version", "TRANS_THRESHOLD",
+           "sal_dims"]
 
 #: Transition probability threshold (reference ``smartVidCrop.py:64``).
 TRANS_THRESHOLD = 0.1
@@ -21,6 +22,11 @@ def sal_dims(w: int, h: int, max_input_d: int):
     """Saliency processing dims (reference ``smartVidCrop.py:252-254``)."""
     dsr = float(max(w, h)) / max_input_d
     return int(h / dsr), int(w / dsr)
+
+
+def smart_crop_version() -> str:
+    """Version string (reference ``smartVidCrop.py:2617``)."""
+    return '1.4.0-torch'
 
 
 def sc_init_crop_params(print_dict: bool = False,

@@ -26,7 +26,7 @@ from retargetvid_tpu_torch.pipeline.geometry import (
     bucket_size,
     geometry_boxes,
     geometry_series,
-    seg_bucket_size,
+    pad_clip_tables,
 )
 from retargetvid_tpu_torch.pipeline.saliency import (
     get_optimal_out_size,
@@ -172,29 +172,16 @@ class FusedClipProgram:
         """
         cfg = GeometryConfig.from_crop_params(crop_params)
         t_sel = len(selected)
-        t_sel_pad = bucket_size(t_sel)
         t_out = bucket_size(fc)
-        s = len(segmentation)
-        s_pad = seg_bucket_size(s) if seg_bucket is None else (
-            seg_bucket if s <= seg_bucket else bucket_size(s))
         sal = torch.as_tensor(sal_frames).to(self.device)
         h, w = int(sal.shape[1]), int(sal.shape[2])
-
-        sel_idx = np.zeros(t_sel_pad, np.int64)
+        sel_mask, ti, seg_cols = pad_clip_tables(
+            true_inds, segmentation, segmentation_sel, seg_bucket)
+        sel_idx = np.zeros(len(ti), np.int64)
         sel_idx[:t_sel] = np.asarray(selected, np.int64)
-        sel_mask = np.arange(t_sel_pad) < t_sel
-        ti = np.zeros(t_sel_pad, np.int64)
-        ti[:t_sel] = np.asarray(true_inds, np.int64)
-        if t_sel > 0:
-            ti[t_sel:] = ti[t_sel - 1] + np.arange(1, t_sel_pad - t_sel + 1)
 
         def dev(arr):
             return torch.from_numpy(arr).to(self.device)
-
-        def pad_seg(arr, col):
-            out = np.zeros(s_pad, np.int64)
-            out[:s] = np.asarray(arr, np.int64)[:, col]
-            return dev(out)
 
         stage = self.timer.stage if self.timer is not None else None
         clip_fn = make_clip_fn(
@@ -206,9 +193,8 @@ class FusedClipProgram:
         with torch.inference_mode():
             vec, spec = pack_clip_outputs(clip_fn(
                 sal, dev(sel_idx), dev(sel_mask), t_sel, dev(ti),
-                pad_seg(segmentation, 0), pad_seg(segmentation, 1),
-                pad_seg(segmentation_sel, 0), pad_seg(segmentation_sel, 1),
-                s, int(fc), int(w_final), int(h_final)))
+                *(dev(c) for c in seg_cols), len(segmentation), int(fc),
+                int(w_final), int(h_final)))
         # One device-to-host copy for all outputs.
         out = unpack_clip_outputs(vec.cpu().numpy(), spec)
         out['boxes'] = out['boxes'][:fc]

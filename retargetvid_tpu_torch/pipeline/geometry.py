@@ -22,6 +22,10 @@ size: multi-ratio serving runs :func:`geometry_series` once and
 :func:`geometry_boxes` per ratio.  (The chain syncs with the host for its
 loop bounds, so it is not vmapped over ratios as the JAX package does.)
 Every crop-parameter setting of the JAX chain is served.
+
+:func:`run_geometry` is the host entry of the streaming path
+(``smart_vid_crop``): it pads the ingest's outputs to the bucket sizes and
+runs the chain on one device.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from retargetvid_tpu_torch.device import resolve_device
 from retargetvid_tpu_torch.ops.boxes import compute_crop_boxes, shift_time
 from retargetvid_tpu_torch.ops.center import center_of_mass
 from retargetvid_tpu_torch.ops.clustering import clustering_filter
@@ -44,7 +49,8 @@ from retargetvid_tpu_torch.ops.temporal import (
 from retargetvid_tpu_torch.ops.threshold import threshold_saliency
 
 __all__ = ["GeometryConfig", "geometry_pipeline", "geometry_series",
-           "geometry_boxes", "bucket_size", "seg_bucket_size"]
+           "geometry_boxes", "run_geometry", "pad_clip_tables", "bucket_size",
+           "seg_bucket_size"]
 
 _BUCKETS = (32, 48, 64, 96, 128, 160, 192, 256, 320, 384, 512, 640, 768,
             1024, 1536, 2048, 3072, 4096, 6144, 8192)
@@ -293,3 +299,76 @@ def geometry_pipeline(smaps, sel_mask, fc_sel, true_inds,
                              w_process=w, w_final=w_final, h_final=h_final,
                              shift=cfg.shift_time),
             **series}
+
+
+def pad_clip_tables(true_inds, segmentation, segmentation_sel,
+                    seg_bucket: int | None = None):
+    """The host tables of a clip padded to the bucket sizes, as numpy
+    int64: ``sel_mask`` and ``true_inds`` (T_sel_pad,), the latter
+    continued ascending past the picks (interpolation gathers stay
+    sane), and the four (S_pad,) segment columns (starts, ends, starts
+    and ends over the picks).  Segments pad to ``seg_bucket_size`` or
+    to ``seg_bucket`` when given and large enough."""
+    t_sel = len(true_inds)
+    t_sel_pad = bucket_size(t_sel)
+    s = len(segmentation)
+    s_pad = seg_bucket_size(s) if seg_bucket is None else (
+        seg_bucket if s <= seg_bucket else bucket_size(s))
+    sel_mask = np.arange(t_sel_pad) < t_sel
+    ti = np.zeros(t_sel_pad, np.int64)
+    ti[:t_sel] = np.asarray(true_inds, np.int64)
+    if t_sel > 0:
+        ti[t_sel:] = ti[t_sel - 1] + np.arange(1, t_sel_pad - t_sel + 1)
+    cols = []
+    for table in (segmentation, segmentation_sel):
+        for col in (0, 1):
+            out = np.zeros(s_pad, np.int64)
+            out[:s] = np.asarray(table, np.int64)[:, col]
+            cols.append(out)
+    return sel_mask, ti, cols
+
+
+def run_geometry(smaps, true_inds, segmentation, segmentation_sel,
+                 crop_params: dict, *, fps: float, h_orig: int, w_orig: int,
+                 w_final: int, h_final: int, fc: int,
+                 borders=(0, 0, 0, 0), seg_bucket: int | None = None,
+                 fetch_maps: bool = False, device=None) -> dict:
+    """Host entry: pad the ingest outputs to the bucket sizes, run the
+    chain on ``device`` (``None`` means the GPU) and return numpy outputs
+    trimmed to the clip.
+
+    ``smaps``: (T_sel, H, W) uint8 saliency volume of the selected frames,
+    numpy or a tensor (a tensor already on ``device`` is not copied).
+    ``fetch_maps`` also returns the filtered volume (the demo render).
+    """
+    dev = resolve_device(device)
+    t_sel = int(smaps.shape[0])
+    sel_mask, ti, seg_cols = pad_clip_tables(
+        true_inds, segmentation, segmentation_sel, seg_bucket)
+    sm = torch.as_tensor(smaps).to(dev)
+    if len(ti) != t_sel:
+        sm = torch.cat([sm, sm.new_zeros((len(ti) - t_sel,)
+                                         + tuple(sm.shape[1:]))])
+
+    def tensor(arr):
+        return torch.from_numpy(arr).to(dev)
+
+    with torch.inference_mode():
+        out = geometry_pipeline(
+            sm, tensor(sel_mask), t_sel, tensor(ti),
+            *(tensor(c) for c in seg_cols), len(segmentation), int(fc),
+            *(int(b) for b in borders),
+            cfg=GeometryConfig.from_crop_params(crop_params),
+            fps=float(fps), h_orig=int(h_orig), w_orig=int(w_orig),
+            w_final=int(w_final), h_final=int(h_final),
+            t_out=bucket_size(fc))
+        maps = out.pop('smaps_filtered')
+        out = {k: v.cpu().numpy() for k, v in out.items()}
+        if fetch_maps:
+            out['smaps_filtered'] = maps[:t_sel].cpu().numpy()
+    out['boxes'] = out['boxes'][:fc]
+    for k in ('dxi', 'dyi', 'dxs', 'dys', 'dxl', 'dyl'):
+        out[k] = out[k][:fc]
+    for k in ('dx', 'dy', 'jumps'):
+        out[k] = out[k][:t_sel]
+    return out

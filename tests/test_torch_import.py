@@ -1,5 +1,9 @@
 """The PyTorch port imports neither JAX nor the JAX package, and its entry
-points never fall back to the CPU or to the plain kernel versions."""
+points never fall back to the CPU or to the plain kernel versions.
+
+The ``cuda`` case runs on the card without JAX: ``python -m pytest
+tests/test_torch_import.py -m cuda --noconftest``.
+"""
 
 import pkgutil
 import subprocess
@@ -26,6 +30,9 @@ def _port_modules():
 def test_port_imports_no_jax():
     mods = _port_modules()
     assert len(mods) >= 20, mods
+    for name in ('cli', 'pipeline.crop', 'pipeline.render', 'io.video',
+                 'eval.harness', 'models.torch_import', 'utils.timing'):
+        assert f'retargetvid_tpu_torch.{name}' in mods, name
     code = ('import importlib, sys\n'
             f'for m in {mods!r}: importlib.import_module(m)\n'
             'import chip_smoke, kernel_turns\n'
@@ -39,7 +46,7 @@ def test_port_imports_no_jax():
     assert res.returncode == 0, res.stdout + res.stderr
 
 
-def test_entry_points_need_a_gpu_unless_asked_for_cpu():
+def test_entry_points_need_a_gpu_unless_asked_for_cpu(tmp_path):
     from retargetvid_tpu_torch.device import resolve_device
     from retargetvid_tpu_torch.models.transnet import (
         IngestShotProgram,
@@ -49,6 +56,7 @@ def test_entry_points_need_a_gpu_unless_asked_for_cpu():
     from retargetvid_tpu_torch.models.unisal import UNISAL
     from retargetvid_tpu_torch.pipeline.fused import FusedClipProgram
     from retargetvid_tpu_torch.pipeline.oneshot import OneShotClipProgram
+    from retargetvid_tpu_torch.pipeline.saliency import SaliencyPredictor
 
     def unisal():
         return UNISAL(cnn_widen_factor=0.25, cnn_last_channel=None,
@@ -63,6 +71,7 @@ def test_entry_points_need_a_gpu_unless_asked_for_cpu():
             TransNetV1(f=2, d=16), **kw),
         'IngestShotProgram': lambda **kw: IngestShotProgram(
             TransNetV1(f=2, d=16), sal_hw=(36, 64), **kw),
+        'SaliencyPredictor': lambda **kw: SaliencyPredictor(unisal(), **kw),
     }
     assert resolve_device('cpu') == torch.device('cpu')
     for name, make in entry_points.items():
@@ -76,6 +85,51 @@ def test_entry_points_need_a_gpu_unless_asked_for_cpu():
             make()
         with pytest.raises(RuntimeError, match='CUDA'):
             make(device='cuda')
+    for name, call in _host_entry_points(tmp_path).items():
+        with pytest.raises(RuntimeError, match='CUDA'):
+            call()
+
+
+def _host_entry_points(tmp_path):
+    """The streaming path's functions and the CLI, each called without a
+    device (the GPU by default)."""
+    import pickle
+
+    import numpy as np
+
+    from retargetvid_tpu_torch.cli import main
+    from retargetvid_tpu_torch.config import sc_init_crop_params
+    from retargetvid_tpu_torch.pipeline.crop import smart_vid_crop
+    from retargetvid_tpu_torch.pipeline.geometry import run_geometry
+    from retargetvid_tpu_torch.pipeline.ingest import (
+        ingest_pickle,
+        segment_chunks,
+    )
+
+    cp = sc_init_crop_params()
+    frames = np.zeros((4, 36, 64, 3), np.uint8)
+    pkl = tmp_path / 'clip.pkl'
+    with open(pkl, 'wb') as fp:
+        pickle.dump({'fr': 30.0, 'frame_count': 4, 'w': 64, 'h': 36,
+                     'frames': frames}, fp)
+    info = {'fps': 30.0, 'frame_count': 4, 'width': 64, 'height': 36}
+
+    def unused(*args):
+        raise AssertionError('a model ran before the device was resolved')
+
+    return {
+        'segment_chunks': lambda: segment_chunks(
+            info, [(frames, 0)], cp, unused, unused),
+        'ingest_pickle': lambda: ingest_pickle(pkl, cp, unused),
+        'smart_vid_crop': lambda: smart_vid_crop(
+            pkl, cp, save_vid=False, saliency_fn=unused),
+        'run_geometry': lambda: run_geometry(
+            np.zeros((2, 8, 8), np.uint8), [0, 3], [[0, 3]], [[0, 1]], cp,
+            fps=30.0, h_orig=36, w_orig=64, w_final=12, h_final=36, fc=4),
+        'cli crop': lambda: main(['crop', str(pkl)]),
+        'cli benchmark': lambda: main(['benchmark', '--videos',
+                                       str(tmp_path)]),
+    }
 
 
 def test_kernel_wrapper_has_no_fallback():
@@ -94,3 +148,37 @@ def test_kernel_wrapper_has_no_fallback():
             assert 'nvcc' in str(exc)
         else:
             pytest.skip(f'nvcc present at {nvcc}')
+
+
+@pytest.mark.cuda
+def test_saliency_predictor_kernel_on_the_card(monkeypatch):
+    """On the card ``SaliencyPredictor.predict`` launches the postprocess
+    kernel once per chunk (3 for 81 frames at ``chunk=32``) and gives the
+    maps of the plain version swapped in."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA GPU (run on the card: python -m pytest '
+                    'tests/test_torch_import.py -m cuda --noconftest)')
+    import numpy as np
+
+    from retargetvid_tpu_torch.kernels.postprocess import (
+        saliency_postprocess,
+        saliency_postprocess_reference,
+    )
+    from retargetvid_tpu_torch.models.init import seeded_init_
+    from retargetvid_tpu_torch.models.unisal import UNISAL
+    from retargetvid_tpu_torch.pipeline import saliency
+
+    monkeypatch.setattr(torch.backends.cudnn, 'allow_tf32', False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, 'allow_tf32', False)
+    frames = np.random.default_rng(0).integers(
+        0, 255, (81, 140, 250, 3)).astype(np.uint8)
+    predictor = saliency.SaliencyPredictor(seeded_init_(UNISAL(), 1))
+    saliency_postprocess.launches = 0
+    maps = predictor.predict(frames)
+    assert saliency_postprocess.launches == 3
+    monkeypatch.setattr(saliency, 'saliency_postprocess',
+                        saliency_postprocess_reference)
+    plain = predictor.predict(frames)
+    assert saliency_postprocess.launches == 3
+    assert maps.shape == (81, 140, 250) and maps.dtype == np.uint8
+    assert np.array_equal(maps, plain)

@@ -78,6 +78,7 @@ def test_empty_and_constant_frames():
 
 @pytest.mark.parametrize('t, hw, cluster, on_chip', [
     (96, 140 * 250, 4, True),         # the main path's shape
+    (32, 140 * 250, 8, True),         # the streaming path's chunk
     (1, 140 * 250, 8, True),          # one frame
     (3, 37 * 53, 1, True),            # ragged: hw % 4 != 0
     (2, 720 * 1280, 8, False),        # more than a cluster holds on chip
@@ -102,10 +103,11 @@ def test_launch_plan(t, hw, cluster, on_chip):
     assert (hits == 1).all()
 
 
-#: The kernel's shapes on the card: the main path's, one frame, ragged
-#: (hw % 4 != 0), larger than a cluster holds on chip, small frames.
-CUDA_SHAPES = [(96, 140, 250), (1, 140, 250), (3, 37, 53), (2, 720, 1280),
-               (5, 32, 128)]
+#: The kernel's shapes on the card: the main path's, the streaming path's
+#: chunk, one frame, ragged (hw % 4 != 0), larger than a cluster holds on
+#: chip, small frames.
+CUDA_SHAPES = [(96, 140, 250), (32, 140, 250), (1, 140, 250), (3, 37, 53),
+               (2, 720, 1280), (5, 32, 128)]
 
 
 @pytest.mark.cuda
