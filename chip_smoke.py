@@ -4,9 +4,10 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout.  It drives the port's paths -- the
-one-shot clip program, raw frames to crop boxes, the two-dispatch path, and
-the streaming ingest with ``smart_vid_crop`` and the ``crop`` command -- at
-full model width and fails (exit code != 0) if any phase fails:
+one-shot clip program, raw frames to crop boxes, the two-dispatch path, the
+streaming ingest with ``smart_vid_crop`` and the ``crop`` command, and
+dynamic (ConvGRU) saliency -- at full model width and fails (exit code !=
+0) if any phase fails:
 
   (a) build: compile every CUDA kernel of the port from ``csrc/`` (one
       ``nvcc`` per source, started together) and report the seconds;
@@ -14,14 +15,17 @@ full model width and fails (exit code != 0) if any phase fails:
       plain PyTorch version at the main path's shape (96, 140, 250) float32
       and at further shapes (the streaming path's chunk (32, 140, 250), one
       frame, ragged, larger than a cluster holds on chip, small), on
-      wide-range inputs and on an unaligned view; all
+      wide-range inputs and on an unaligned view, and at the source-
+      resolution stack of ``predict_video`` (480, 360, 640) and a ragged
+      (37, 360, 640), where frames overflow their cluster; all
       -inf frames give zeros, constant frames 255; the kernel must be
       bit-equal (it fails on any differing pixel and reports the count).
       Times beside the bytes bound: ``ms_device`` (cold L2) and
       ``ms_device_warm`` are device time per launch from a CUDA graph of 60
       launches replayed between two events, ``ms_call`` a single call with
       the host's enqueue in it; ``plain_ms`` is the plain version timed as
-      ``ms_device``;
+      ``ms_device``; the source stack is timed cold only (it is larger
+      than the L2), over 10 launches per graph, cycling two 442 MB inputs;
   (c) main path: ``OneShotClipProgram.run`` with the full-sequence
       TransNet plan on the synthetic 480x360x640 clip of ``bench.py``
       (30 fps, 1:3 ratio), full-width TransNetV1 and UNISAL with seeded
@@ -56,6 +60,15 @@ full model width and fails (exit code != 0) if any phase fails:
       ``retargetvid_tpu_torch.cli.main(['crop', ..., '--save-vid'])``,
       plain and with ``--best-settings``: the boxes file, the cropped
       ``_sc.pkl`` and ``ceil(picks / 32)`` launches;
+  (l) dynamic saliency: ``SaliencyPredictor.predict_video`` on the bench
+      clips (full-width UNISAL with its ConvGRU, float32, ``DHF1K``,
+      ``frame_modulo`` 4, ``seq_len`` 6: 80 ConvGRU chunks per clip), once
+      without smoothing and once with ``med41``, in turns; per-clip times
+      split by CUDA events into the chunk loop, the smoothing and the
+      kernel (one launch per clip over the (480, 360, 640) stack); and on
+      one clip the kernel's maps against numpy's tail of the JAX package
+      (``exp``, max-normalize, uint8 in host float32) on the same
+      log-probabilities: the pixels that differ, at most 1 LSB apart;
   (d) exactness, in float32 with TF32 off, under the ICIP and the ISM
       preset: the main-path clip once through the kernel and once through
       the plain postprocess gives identical boxes; each ratio of
@@ -71,10 +84,15 @@ full model width and fails (exit code != 0) if any phase fails:
       one-shot probabilities equal ``TransNetPredictor``'s within 1e-5;
       and a 96-frame 72x128 clip through ``segment_chunks`` (3 read batches
       of 40) and ``smart_vid_crop`` gives the same picks and shots on the
-      card and on the CPU, boxes within 1 px, under both presets.
+      card and on the CPU, boxes within 1 px, under both presets; a
+      24-frame 72x128 clip through ``predict_video`` (the narrow UNISAL
+      with its ConvGRU), plain and with ``med3``, gives maps within 1 LSB
+      on the card and on the CPU, and ``seq_len`` 2 within 1 LSB of
+      ``seq_len`` 9 on the card (the hidden state carried across chunks).
 
 ``--profile DIR`` adds one ``torch.profiler`` run of a clip on each of
-the main path, the ISM main path and the two streaming phases (device busy
+the main path, the ISM main path, the two streaming phases and
+``predict_video`` (device busy
 time, idle share, kernel launches, the postprocess kernel's own device
 time; the per-operator tables go to ``DIR/profile_<phase>.txt``).
 
@@ -203,6 +221,11 @@ CHUNK_SHAPE = (32, 140, 250)
 #: frames.
 EXTRA_SHAPES = (CHUNK_SHAPE, (1, 140, 250), (3, 37, 53), (2, 720, 1280),
                 (5, 32, 128))
+#: ``predict_video``'s postprocess input on the bench clip: every frame at
+#: the source resolution, larger than a cluster of 8 holds on chip; and a
+#: clip of 37 frames.
+SOURCE_SHAPE = (480, 360, 640)
+RAGGED_SOURCE_SHAPE = (37, 360, 640)
 #: (scale, offset) of wide-range inputs ``randn * scale + offset`` at the
 #: main shape, for the kernel's division: exp spanning many decades,
 #: subnormal exp values beside normal maxima, and maxima above 2^125.
@@ -283,7 +306,6 @@ def phase_kernel(card):
     shifted.copy_(logp)
     cases.append(check_kernel_case(shifted, special, 'main, unaligned'))
     del flat, shifted
-    max_err = max(c['max_abs_err'] for c in cases)
 
     # Times: 6 inputs of 13.44 MB (80.6 MB together) cycle through the L2,
     # so each launch finds its input cold; the main path's input was just
@@ -317,13 +339,16 @@ def phase_kernel(card):
              'bound_ms': chunk_bound, 'bound_by': chunk_by}
     chunk['bound_share'] = chunk_bound / chunk['ms_device']
     del chunk_cold
+    source = source_stack_record(cases)
+    max_err = max(c['max_abs_err'] for c in cases)
     emit(card, phase='kernel', kernel='saliency_postprocess',
          shape=list(MAIN_SHAPE), plan=plan._asdict(), cases=cases,
          max_abs_err=max_err, tolerance='0 LSB', ms_device=ms_dev,
          ms_device_warm=ms_dev_warm, ms_call=ms_call, plain_ms=plain_ms,
          plain_ms_call=plain_ms_call, same_bytes_cast_ms=cast_ms,
          bound_ms=bound_ms, bound_by=bound_by,
-         bound_share=bound_ms / ms_dev, bytes=moved, chunk=chunk)
+         bound_share=bound_ms / ms_dev, bytes=moved, chunk=chunk,
+         source_stack=source)
     return {'name': 'saliency_postprocess', 'route': 'cuda',
             'source': 'retargetvid_tpu_torch/csrc/saliency_postprocess.cu',
             'replaces': 'retargetvid_tpu/ops/pallas_kernels.py:39',
@@ -333,7 +358,42 @@ def phase_kernel(card):
             'plain_ms': plain_ms, 'bound_ms': bound_ms, 'bound_by': bound_by,
             # No single PyTorch call computes exp + per-frame max-normalize
             # + uint8 quantization.
-            'library_ms': None, 'chunk': chunk}
+            'library_ms': None, 'chunk': chunk, 'source_stack': source}
+
+
+def source_stack_record(cases):
+    """The kernel at ``predict_video``'s source-resolution stacks: bit-equal
+    to the plain version at :data:`SOURCE_SHAPE` and
+    :data:`RAGGED_SOURCE_SHAPE` (the cases are appended to ``cases``), and
+    timed at the first beside its bytes bound.  Two 442 MB inputs cycle,
+    10 launches per graph."""
+    import torch
+
+    from retargetvid_tpu_torch.kernels.postprocess import (
+        launch_plan,
+        saliency_postprocess,
+        saliency_postprocess_reference,
+    )
+    for i, shape in enumerate((SOURCE_SHAPE, RAGGED_SOURCE_SHAPE)):
+        x, sp = log_maps(shape, seed=40 + i)
+        cases.append(check_kernel_case(x, sp, 'x'.join(map(str, shape))))
+        del x
+    cold = [log_maps(SOURCE_SHAPE, seed=50 + i)[0] for i in range(2)]
+    bound, by, moved = kernel_bound(SOURCE_SHAPE)
+    t, h, w = SOURCE_SHAPE
+    rec = {'shape': list(SOURCE_SHAPE),
+           'plan': launch_plan(t, h * w)._asdict(),
+           'ms_device': device_ms(saliency_postprocess, cold, n=10, reps=7),
+           'ms_device_warm': 'not measured: one 442 MB input is about 9x '
+                             'the 50 MB L2, so no launch finds it warm',
+           'ms_call': call_ms(lambda: saliency_postprocess(cold[0]), n=10),
+           'plain_ms': device_ms(saliency_postprocess_reference, cold, n=10,
+                                 reps=7),
+           'bound_ms': bound, 'bound_by': by, 'bytes': moved}
+    rec['bound_share'] = bound / rec['ms_device']
+    del cold
+    torch.cuda.empty_cache()
+    return rec
 
 
 def kernel_bound(shape):
@@ -897,6 +957,115 @@ def phase_cli_crop_pickle(card, bench):
     return total
 
 
+def numpy_tail(logp: np.ndarray) -> np.ndarray:
+    """The JAX package's ``predict_video`` tail
+    (``retargetvid_tpu/pipeline/saliency.py:180-183``), host float32."""
+    p = np.exp(logp)
+    mx = p.max(axis=(1, 2), keepdims=True)
+    p = np.where(mx > 0, p / mx, p) * 255.0
+    return p.astype(np.uint8)
+
+
+def tail_vs_numpy(predictor, clip, smooth):
+    """``predict_video`` on ``clip`` with the kernel's input captured: the
+    kernel's maps against :func:`numpy_tail` of the same log-probabilities
+    fetched to the host.  Returns (differing pixels, max LSB)."""
+    from retargetvid_tpu_torch.pipeline import saliency
+    real = saliency.saliency_postprocess
+    seen = {}
+
+    def capture(logp):
+        seen['logp'] = logp
+        return real(logp)
+
+    saliency.saliency_postprocess = capture
+    try:
+        maps = predictor.predict_video(clip, smooth_method=smooth)
+    finally:
+        saliency.saliency_postprocess = real
+    ref = numpy_tail(seen.pop('logp').cpu().numpy())
+    diff = np.abs(maps.astype(np.int16) - ref.astype(np.int16))
+    return int((diff > 0).sum()), int(diff.max())
+
+
+def phase_predict_video(card, bench, profile_dir=None):
+    """Dynamic saliency on the bench clips, without smoothing and with
+    ``med41`` in turns; returns the kernel's launches of each."""
+    import torch
+
+    from retargetvid_tpu_torch.kernels.postprocess import saliency_postprocess
+    from retargetvid_tpu_torch.pipeline.oneshot import StageTimer
+    from retargetvid_tpu_torch.pipeline.saliency import SaliencyPredictor
+    predictor = SaliencyPredictor(bench.un)            # float32
+    chunks = [0]
+    hook = bench.un.rnn.register_forward_hook(
+        lambda *_: chunks.__setitem__(0, chunks[0] + 1))
+    modes = {'none': None, 'med41': 'med41'}
+    n_frames = int(bench.warm.shape[0])
+    try:
+        for smooth in modes.values():
+            predictor.predict_video(bench.warm, smooth_method=smooth)
+        ms = {m: [] for m in modes}
+        launches = {m: [] for m in modes}
+        n_chunks = {m: [] for m in modes}
+        stages = {m: [] for m in modes}
+        for i, clip in enumerate(bench.clips):
+            order = list(modes) if i % 2 == 0 else list(modes)[::-1]
+            for mode in order:
+                predictor.timer = StageTimer()
+                torch.cuda.synchronize()
+                saliency_postprocess.launches = 0
+                chunks[0] = 0
+                t0 = time.perf_counter()
+                maps = predictor.predict_video(clip,
+                                               smooth_method=modes[mode])
+                ms[mode].append((time.perf_counter() - t0) * 1e3)
+                launches[mode].append(saliency_postprocess.launches)
+                n_chunks[mode].append(chunks[0])
+                stages[mode].append({k: v[0] for k, v in
+                                     predictor.timer.times_ms().items()})
+                if maps.shape != (n_frames, bench.h, bench.w) or not (
+                        maps.reshape(n_frames, -1).max(axis=1) == 255).all():
+                    fail(f'predict_video {mode}: maps of shape {maps.shape} '
+                         f'or a frame whose maximum is not 255')
+        predictor.timer = None
+        tails = {m: tail_vs_numpy(predictor, bench.clips[0], modes[m])
+                 for m in modes}
+    finally:
+        hook.remove()
+    want_chunks = sum(-(-len(range(o, n_frames, 4)) // 6) for o in range(4))
+    for mode in modes:
+        if launches[mode] != [1] * len(bench.clips):
+            fail(f'predict_video {mode}: {launches[mode]} kernel launches '
+                 f'per clip (expected 1)')
+        if n_chunks[mode] != [want_chunks] * len(bench.clips):
+            fail(f'predict_video {mode}: {n_chunks[mode]} ConvGRU chunks '
+                 f'per clip (expected {want_chunks})')
+        if tails[mode][1] > 1:
+            fail(f'predict_video {mode}: the kernel differs from numpy\'s '
+                 f'tail by {tails[mode][1]} LSB')
+    for mode in modes:
+        med = statistics.median(ms[mode])
+        emit(card, phase='predict_video' if mode == 'none'
+             else f'predict_video_{mode}',
+             clip=[n_frames, bench.h, bench.w], dtype='float32',
+             source='DHF1K', frame_modulo=4, seq_len=6,
+             smooth=modes[mode], per_clip_ms=ms[mode], median_ms=med,
+             frames_per_s=n_frames / med * 1e3,
+             stage_median_ms={k: statistics.median(s[k] for s in
+                                                   stages[mode])
+                              for k in stages[mode][0]},
+             launches_per_clip=launches[mode],
+             convgru_chunks_per_clip=n_chunks[mode],
+             kernel_vs_numpy_tail={'differing_px': tails[mode][0],
+                                   'of_px': n_frames * bench.h * bench.w,
+                                   'max_lsb': tails[mode][1]})
+    if profile_dir is not None:
+        profile_clip(card, lambda: predictor.predict_video(bench.clips[0]),
+                     Path(profile_dir), 'predict_video')
+    return sum(launches['none']), sum(launches['med41'])
+
+
 def profile_clip(card, run, out_dir: Path, name: str):
     """``torch.profiler`` over one more clip (``run()``): device busy time
     against the wall time, kernel launches, and the per-operator table
@@ -982,14 +1151,16 @@ def small_clip(fc=48, h=72, w=128):
 
 def small_models(device):
     """Full-width TransNet (head biased) and the narrow UNISAL of the test
-    suite, from the same seeds on every device."""
+    suite (with its ConvGRU, registered after every other module), from the
+    same seeds on every device."""
     import torch
 
     from retargetvid_tpu_torch.models.init import seeded_init_
     from retargetvid_tpu_torch.models.transnet import TransNetV1
     from retargetvid_tpu_torch.models.unisal import UNISAL
     tiny = dict(cnn_widen_factor=0.25, cnn_last_channel=None,
-                rnn_input_channels=32, smoothing_ksize=11, smoothing_rank=4)
+                rnn_input_channels=32, rnn_hidden_channels=32,
+                smoothing_ksize=11, smoothing_rank=4)
     tn = seeded_init_(TransNetV1(), 0)
     with torch.no_grad():
         tn.dense2.bias.copy_(torch.tensor([5.0, -5.0]))
@@ -1181,6 +1352,34 @@ def stream_card_vs_cpu(name, models, cp):
             'max_box_px': box_err}
 
 
+def predict_video_card_vs_cpu(models):
+    """A 24-frame 72x128 clip through ``predict_video`` on the card and on
+    the CPU, plain and with ``med3``: maps within 1 LSB; and on the card
+    ``seq_len`` 2 against 9 within 1 LSB.  Returns the differing pixels."""
+    from retargetvid_tpu_torch.pipeline.saliency import SaliencyPredictor
+    frames = small_clip(fc=24)
+    preds = {d: SaliencyPredictor(models[d][1], device=d)
+             for d in ('cuda', 'cpu')}
+    rec = {}
+    for smooth in (None, 'med3'):
+        maps = {d: p.predict_video(frames, smooth_method=smooth)
+                for d, p in preds.items()}
+        short = preds['cuda'].predict_video(frames, smooth_method=smooth,
+                                            seq_len=2)
+        long = preds['cuda'].predict_video(frames, smooth_method=smooth,
+                                           seq_len=9)
+        for label, a, b in (('card vs CPU', maps['cuda'], maps['cpu']),
+                            ('seq_len 2 vs 9', short, long)):
+            diff = np.abs(a.astype(np.int16) - b.astype(np.int16))
+            if diff.max() > 1:
+                fail(f'predict_video small clip, smooth={smooth}, {label}: '
+                     f'{int(diff.max())} LSB apart')
+            rec[f'{label}, smooth={smooth}'] = {
+                'differing_px': int((diff > 0).sum()), 'of_px': diff.size,
+                'max_lsb': int(diff.max())}
+    return rec
+
+
 def phase_exact(card):
     import torch
 
@@ -1269,6 +1468,7 @@ def phase_exact(card):
     focus = ism_geometry_card_vs_cpu(presets['ism'])
     stream = {name: stream_card_vs_cpu(name, models, cp)
               for name, cp in presets.items()}
+    dynamic = predict_video_card_vs_cpu(models)
     emit(card, phase='exact_float32', dtype='float32', tf32=False,
          kernel_vs_plain_boxes_differing_frames=n_box_diff,
          ism_geometry_focus_card_vs_cpu=focus,
@@ -1276,7 +1476,8 @@ def phase_exact(card):
          windowed_probs_vs_predictor_max_abs=probs_err,
          multi_ratio_boxes_equal_to_run=True,
          small_clip_card_vs_cpu_max_box_px=box_err,
-         stream_small_clip_card_vs_cpu=stream, tolerance_px=1)
+         stream_small_clip_card_vs_cpu=stream, tolerance_px=1,
+         predict_video_small_clip=dynamic, predict_video_tolerance_lsb=1)
 
 
 def main():
@@ -1284,8 +1485,9 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--profile', metavar='DIR', default=None,
                         help='also profile one clip of the main path, the '
-                             'ISM main path and the streaming phases with '
-                             'torch.profiler and write the tables to DIR')
+                             'ISM main path, the streaming phases and '
+                             'predict_video with torch.profiler and write '
+                             'the tables to DIR')
     args = parser.parse_args()
     repo = Path(__file__).resolve().parent
     if not (repo / 'retargetvid_tpu_torch' / 'csrc').is_dir():
@@ -1322,6 +1524,9 @@ def main():
         card, bench, ism_params(), 'ism_crop_stream', args.profile)
     record['launches_by_path']['cli_crop_pickle'] = phase_cli_crop_pickle(
         card, bench)
+    (record['launches_by_path']['predict_video'],
+     record['launches_by_path']['predict_video_med41']) = \
+        phase_predict_video(card, bench, args.profile)
     with exact_float32():
         phase_exact(card)
     if 'jax' in sys.modules:

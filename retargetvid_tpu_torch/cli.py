@@ -1,6 +1,6 @@
 """Command-line interface of the PyTorch port.
 
-    python -m retargetvid_tpu_torch.cli {crop,benchmark,eval} ...
+    python -m retargetvid_tpu_torch.cli {crop,benchmark,eval,predict} ...
 
 Port of ``retargetvid_tpu/cli.py``'s user entry points, which mirror the
 reference's:
@@ -12,6 +12,9 @@ reference's:
   video with one ``OneShotClipProgram.dispatch_multi`` for all ratios.
 - ``crop``: smart-crop one video (or a reference-format ``.pkl``).
 - ``eval``: the standalone ``retargetvid_eval.py`` evaluator.
+- ``predict``: saliency maps of a folder of images or a video file
+  (reference ``run.py predict_examples``), static or ``--dynamic``
+  (the ConvGRU over interleaved frame-modulo sequences).
 
 Model weights: ``--unisal-weights`` (the reference's torch
 ``weights_best.pth``) and ``--transnet-weights`` (the ``{'params': ...}``
@@ -164,7 +167,8 @@ def cmd_benchmark_oneshot(args, vid_paths, results_out, annots, crop_params):
     program's static pick/shot bounds (the JAX CLI's route)."""
     from retargetvid_tpu_torch.config import sal_dims
     from retargetvid_tpu_torch.eval.annotations import write_boxes_file
-    from retargetvid_tpu_torch.io.video import open_reader, probe_video
+    from retargetvid_tpu_torch.io.native_reader import open_reader
+    from retargetvid_tpu_torch.io.video import probe_video
     from retargetvid_tpu_torch.ops.boxes import calc_dest_size
     from retargetvid_tpu_torch.pipeline.oneshot import OneShotClipProgram
 
@@ -352,11 +356,49 @@ def cmd_eval(args):
     evaluate_results_tree(args.results, annots, output_file=args.out)
 
 
+def cmd_predict(args):
+    """Write uint8 PNG saliency maps of a folder of images or a video
+    file."""
+    import cv2
+
+    from retargetvid_tpu_torch.pipeline.saliency import SaliencyPredictor
+    from retargetvid_tpu_torch.train.data import (
+        FolderImageDataset,
+        FolderVideoDataset,
+    )
+
+    predictor = SaliencyPredictor(_load_unisal(args), chunk=args.chunk,
+                                  device=args.device)
+    path = Path(args.path)
+    if path.is_dir():
+        ds = FolderImageDataset(path, device=args.device)
+        names = [f.stem for f in ds.files]
+    else:
+        ds = FolderVideoDataset(path, device=args.device)
+        names = [f'{i:05d}' for i in range(len(ds.images))]
+    out_dir = Path(args.out or (str(path) + '_saliency'))
+    out_dir.mkdir(parents=True, exist_ok=True)
+    frames = np.stack(ds.images)
+    if args.dynamic:
+        maps = predictor.predict_video(frames, source=args.source,
+                                       smooth_method=args.smooth or None)
+    else:
+        maps = predictor.predict(frames)
+    for name, m in zip(names, maps):
+        cv2.imwrite(str(out_dir / f'{name}.png'), m)
+    print(f' wrote {len(names)} saliency maps to {out_dir}')
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog='retargetvid_tpu_torch',
         description=f'SmartVidCrop (PyTorch) v{smart_crop_version()}')
     sub = p.add_subparsers(dest='cmd', required=True)
+
+    def add_device_arg(sp):
+        sp.add_argument('--device', default='cuda',
+                        help="torch device to run on ('cuda' needs a GPU; "
+                             "'cpu' runs the plain PyTorch versions)")
 
     def add_model_args(sp):
         sp.add_argument('--unisal-weights', default=os.environ.get(
@@ -369,9 +411,7 @@ def build_parser() -> argparse.ArgumentParser:
                         help='ISM-2021 preset (use_best_settings=True)')
         sp.add_argument('--temp-path', default=None,
                         help='vid_data feature cache directory')
-        sp.add_argument('--device', default='cuda',
-                        help="torch device to run on ('cuda' needs a GPU; "
-                             "'cpu' runs the plain PyTorch versions)")
+        add_device_arg(sp)
 
     b = sub.add_parser('benchmark', help='RetargetVid benchmark loop')
     add_model_args(b)
@@ -420,6 +460,22 @@ def build_parser() -> argparse.ArgumentParser:
     e.add_argument('--annotations-extract', default=None)
     e.add_argument('--out', default='eval_current.txt')
     e.set_defaults(fn=cmd_eval)
+
+    pr = sub.add_parser('predict', help='saliency maps for a folder/video '
+                                        '(reference run.py predictions)')
+    pr.add_argument('path')
+    pr.add_argument('--out', default=None)
+    pr.add_argument('--unisal-weights', default=os.environ.get(
+        'UNISAL_WEIGHTS', ''))
+    pr.add_argument('--chunk', type=int, default=32)
+    pr.add_argument('--dynamic', action='store_true',
+                    help='recurrent (ConvGRU) video mode with interleaved '
+                         'frame-modulo inference (reference run_inference)')
+    pr.add_argument('--source', default='DHF1K')
+    pr.add_argument('--smooth', default='',
+                    help="temporal smoother for --dynamic, e.g. 'med41'")
+    add_device_arg(pr)
+    pr.set_defaults(fn=cmd_predict)
     return p
 
 

@@ -73,11 +73,15 @@ def flax_to_state_dict(variables: dict,
 def load_flax_variables(module: nn.Module, variables: dict,
                         skip: Iterable[str] = ()) -> nn.Module:
     """Fill every parameter and BatchNorm statistic of ``module`` from the
-    JAX trees; raises on a missing, extra or misshapen entry."""
+    JAX trees; raises on a missing, extra or misshapen entry.  Top-level
+    subtrees named in ``skip`` are left out on both sides: the module's
+    own entries under them keep their values."""
+    skip = set(skip)
     converted = flax_to_state_dict(variables, skip)
     state = module.state_dict()
-    extra = sorted(set(converted) - set(state))
-    missing = sorted(k for k in state if k not in converted
+    kept = [k for k in state if k.split('.', 1)[0] not in skip]
+    extra = sorted(set(converted) - set(kept))
+    missing = sorted(k for k in kept if k not in converted
                      and not k.endswith('num_batches_tracked'))
     if extra or missing:
         raise KeyError(f'flax tree does not match the module: extra '

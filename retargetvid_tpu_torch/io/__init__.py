@@ -1,1 +1,2 @@
-"""Host-side video IO (port of ``retargetvid_tpu/io/video.py``)."""
+"""Host-side video IO (ports of ``retargetvid_tpu/io/video.py`` and
+``io/native_reader.py``)."""

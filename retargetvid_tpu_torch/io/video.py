@@ -6,6 +6,8 @@ reader decodes on a background thread into a bounded queue (the
 counterpart of the reference's ``imutils.FileVideoStream`` decode thread,
 ``smartVidCrop.py:299``), so decode overlaps device work.  Decoding needs
 OpenCV (``cv2``); without it the package still imports and IO raises.
+The ingest and the CLI open files through ``io/native_reader.py:
+open_reader``, which prefers the native C++ decoder to this reader.
 """
 
 from __future__ import annotations
@@ -25,8 +27,7 @@ try:
 except Exception:                                      # pragma: no cover
     _HAS_CV2 = False
 
-__all__ = ["probe_video", "VideoReader", "open_reader", "write_video",
-           "mux_audio"]
+__all__ = ["probe_video", "VideoReader", "write_video", "mux_audio"]
 
 
 def _require_cv2():
@@ -107,12 +108,6 @@ class VideoReader:
                 self._queue.get_nowait()
         except queue.Empty:
             pass
-
-
-def open_reader(path, queue_size: int = 256) -> VideoReader:
-    """The decoder the ingest uses: the threaded OpenCV reader (the JAX
-    package's native C++ reader is not ported)."""
-    return VideoReader(path, queue_size)
 
 
 def write_video(path, frames: Iterator[np.ndarray], fps: float,

@@ -190,9 +190,9 @@ def convert_unisal_state_dict(sd, smoothing_rank=8) -> Tuple[dict, dict, list]:
 def load_unisal_state_dict(module, state_dict):
     """Fill a port ``UNISAL`` from a reference torch state_dict.
 
-    The static path's tree is loaded (the ConvGRU's ``rnn``/``post_rnn``
-    entries are converted and left out); unconsumed checkpoint keys warn, a
-    missing or misshapen entry raises.  Returns the module.
+    Every entry is loaded, the ConvGRU's ``rnn``/``post_rnn`` included;
+    unconsumed checkpoint keys warn, a missing or misshapen entry raises.
+    Returns the module.
     """
     rank = getattr(module, f'smoothing_v_{module.sources[0].lower()}').shape[0]
     params, stats, unconsumed = convert_unisal_state_dict(
@@ -201,5 +201,4 @@ def load_unisal_state_dict(module, state_dict):
         warnings.warn(f'unconsumed checkpoint keys: {unconsumed[:8]}'
                       f'{"..." if len(unconsumed) > 8 else ""}')
     return load_flax_variables(module, {'params': params,
-                                        'batch_stats': stats},
-                               skip=('rnn', 'post_rnn'))
+                                        'batch_stats': stats})

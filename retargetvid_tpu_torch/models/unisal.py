@@ -1,18 +1,20 @@
-"""UNISAL saliency model, static path (PyTorch, NCHW inside).
+"""UNISAL saliency model (PyTorch, NCHW inside), inference.
 
-Port of the static branch of ``retargetvid_tpu/models/unisal.py:UNISAL``
-(the crop pipeline's mode; the ConvGRU branch is not ported): MobileNetV2
-backbone with 2x/4x skip taps, 16 learned Gaussian prior maps concatenated
-at the coarsest scale, a Post-CNN inverted residual, a two-stage decoder
-with skip concatenations, a per-source 1x1 adaptation conv, nearest resize
-to the input size, an edge-padded Gaussian smoothing conv applied as its
-stored rank-r factors (two 1-D convs), a bilinear resize to the target size
-and a spatial log-softmax.
+Port of ``retargetvid_tpu/models/unisal.py:UNISAL``: MobileNetV2 backbone
+with 2x/4x skip taps, 16 learned Gaussian prior maps concatenated at the
+coarsest scale, a Post-CNN inverted residual, the ConvGRU (bypassed for
+static inputs, the crop pipeline's mode) with its ``post_rnn`` 1x1 conv, a
+two-stage decoder with skip concatenations, a per-source 1x1 adaptation
+conv, nearest resize to the input size, an edge-padded Gaussian smoothing
+conv applied as its stored rank-r factors (two 1-D convs), a bilinear
+resize to the target size and a spatial log-softmax.
 
 The public call keeps the JAX layout: (B, T, H, W, 3) in,
-(B, T, th, tw, 1) log-probabilities out.  The network computes in the dtype
-of its parameters; an input of another dtype is cast to it (the JAX model's
-float32 parameters likewise promote a bf16 input to float32).
+(B, T, th, tw, 1) log-probabilities out; :meth:`UNISAL.forward_with_hidden`
+also returns the ConvGRU's final hidden state (B, C, h, w), NCHW.  The
+network computes in the dtype of its parameters; an input of another dtype
+is cast to it (the JAX model's float32 parameters likewise promote a bf16
+input to float32).
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from retargetvid_tpu_torch.models.convgru import ConvGRU
 from retargetvid_tpu_torch.models.layers import (
     DEFAULT_SOURCES,
     Conv1x1BN,
@@ -121,24 +124,31 @@ class _SkipConnection(nn.Module):
 
 
 class UNISAL(nn.Module):
-    """UNISAL static path; see the module docstring for the layout."""
+    """UNISAL; see the module docstring for the layout.
+
+    ``with_rnn`` builds the ConvGRU; ``bypass_rnn`` skips it for static
+    inputs; ``res_rnn`` adds its ``post_rnn`` output to the features
+    instead of replacing them.
+    """
 
     def __init__(self, rnn_input_channels: int = 256,
+                 rnn_hidden_channels: int = 256,
                  cnn_widen_factor: float = 1.0,
                  cnn_last_channel: Optional[int] = 1280,
+                 bypass_rnn: bool = True, res_rnn: bool = True,
                  n_gaussians: int = 16, smoothing_ksize: int = 41,
                  smoothing_rank: int = 8,
                  sources: Sequence[str] = DEFAULT_SOURCES,
-                 rnn_hidden_channels: Optional[int] = None):
+                 with_rnn: bool = True):
         super().__init__()
-        # ``rnn_hidden_channels`` is accepted so a JAX config dict maps
-        # across unchanged; the static path has no recurrent state.
-        del rnn_hidden_channels
         if not smoothing_rank:
             raise NotImplementedError(
                 'the port applies the smoothing conv as rank-r factors; '
                 'smoothing_rank=None (full 2-D kernel) is not ported')
         self.sources = tuple(sources)
+        self.bypass_rnn = bypass_rnn
+        self.res_rnn = res_rnn
+        self.with_rnn = with_rnn
         self.n_gaussians = n_gaussians
         self.smoothing_ksize = smoothing_ksize
         self.cnn = MobileNetV2(widen_factor=cnn_widen_factor,
@@ -169,14 +179,39 @@ class UNISAL(nn.Module):
                     nn.Parameter(torch.from_numpy(kv.copy())))
             setattr(self, f'smoothing_h_{lo}',
                     nn.Parameter(torch.from_numpy(kh.copy())))
+        # Registered last: ``models/init.py:seeded_init_`` draws conv
+        # weights in ``modules()`` order, so every module above keeps the
+        # weights it had without the ConvGRU.
+        if with_rnn:
+            self.rnn = ConvGRU(rnn_input_channels, rnn_hidden_channels,
+                               sources=sources)
+            self.post_rnn = Conv1x1BN(rnn_hidden_channels, rnn_input_channels,
+                                      sources=sources, ds_bn=True)
 
     def forward(self, x, target_size: Optional[Tuple[int, int]] = None,
-                source: str = 'DHF1K'):
+                source: str = 'DHF1K', h0=None,
+                static: Optional[bool] = None):
+        """Log-probabilities (B, T, th, tw, 1); see
+        :meth:`forward_with_hidden`."""
+        return self.forward_with_hidden(x, target_size, source, h0,
+                                        static)[0]
+
+    def forward_with_hidden(self, x,
+                            target_size: Optional[Tuple[int, int]] = None,
+                            source: str = 'DHF1K', h0=None,
+                            static: Optional[bool] = None):
+        """(log-probabilities (B, T, th, tw, 1), the ConvGRU's final hidden
+        state (B, C, h, w) or None where it did not run).
+
+        ``static=None`` means ``T == 1`` or a SALICON-only model; ``h0``
+        (B, C, h, w) starts the ConvGRU (zeros by default)."""
         if source not in self.sources:
             raise ValueError(f'unknown source {source!r}')
         b, t, h, w, c = x.shape
         if target_size is None:
             target_size = (h, w)
+        if static is None:
+            static = t == 1 or self.sources == ('SALICON',)
         lo = source.lower()
         dtype = self.cnn.features_0.conv.weight.dtype
         flat = x.reshape(b * t, h, w, c).permute(0, 3, 1, 2).to(dtype)
@@ -190,6 +225,15 @@ class UNISAL(nn.Module):
             priors = priors[None].expand(feat_1x.shape[0], -1, -1, -1)
             feat_1x = torch.cat([feat_1x, priors.to(dtype)], dim=1)
         up = self.post_cnn(feat_1x, source)
+
+        # The ConvGRU, bypassed for static inputs (reference
+        # ``model.py:457-460``).
+        hidden = None
+        if self.with_rnn and not (static and self.bypass_rnn):
+            seq = up.reshape(b, t, *up.shape[1:])
+            rnn_out, hidden = self.rnn(seq, h0=h0, source=source)
+            rnn_out = self.post_rnn(rnn_out.flatten(0, 1), source)
+            up = up + rnn_out if self.res_rnn else rnn_out
 
         # Decoder.
         up = resize(up, (up.shape[2] * 2, up.shape[3] * 2), 'linear',
@@ -211,4 +255,4 @@ class UNISAL(nn.Module):
 
         up = resize(up, target_size, 'linear', channels_last=False)
         up = spatial_log_softmax(up)                      # (BT, 1, th, tw)
-        return up.permute(0, 2, 3, 1).reshape(b, t, *up.shape[2:], 1)
+        return up.permute(0, 2, 3, 1).reshape(b, t, *up.shape[2:], 1), hidden

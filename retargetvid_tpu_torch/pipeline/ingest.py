@@ -143,7 +143,8 @@ def read_and_segment_video(video_path, crop_params: dict,
     :func:`segment_chunks`.
     """
     del verbose                             # accepted for signature parity
-    from retargetvid_tpu_torch.io.video import open_reader, probe_video
+    from retargetvid_tpu_torch.io.native_reader import open_reader
+    from retargetvid_tpu_torch.io.video import probe_video
 
     t0 = time.perf_counter()
     info = probe_video(video_path)

@@ -1,24 +1,25 @@
 """Saliency inference: network grid, preprocessing and the predictor.
 
-Port of ``retargetvid_tpu/pipeline/saliency.py:get_optimal_out_size,
-preprocess_frames, SaliencyPredictor.predict`` (reference
-``unisal/data.py:1086-1103, 1241-1313``, ``unisal/train.py:1255-1279``):
-PIL-LANCZOS resize to a x32 grid (with PIL's uint8 rounding), /255,
-ImageNet normalisation, the UNISAL static forward and the per-frame
-exp + max-normalize to uint8, which on the card is the hand-written
-saliency-postprocess kernel.  The dynamic (ConvGRU) ``predict_video`` is
-not ported.
+Port of ``retargetvid_tpu/pipeline/saliency.py`` (reference
+``unisal/data.py:1086-1103, 1241-1313``, ``unisal/train.py:425-556,
+1255-1279``): PIL-LANCZOS resize to a x32 grid (with PIL's uint8
+rounding), /255, ImageNet normalisation, the UNISAL forward (static per
+frame in ``predict``, the ConvGRU over interleaved frame-modulo sequences
+in ``predict_video``) and the per-frame exp + max-normalize to uint8, which
+on the card is the hand-written saliency-postprocess kernel.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import contextlib
+from typing import Optional, Tuple
 
 import torch
 
 from retargetvid_tpu_torch.device import resolve_device
 from retargetvid_tpu_torch.kernels.postprocess import saliency_postprocess
 from retargetvid_tpu_torch.ops.resize import resize, round_half_up
+from retargetvid_tpu_torch.utils.sequence import smooth_sequence
 
 __all__ = ["get_optimal_out_size", "preprocess_frames", "SaliencyPredictor",
            "IMAGENET_MEAN", "IMAGENET_STD"]
@@ -62,8 +63,10 @@ class SaliencyPredictor:
     ``model`` is a port ``UNISAL``; its input is cast to ``dtype`` and it
     computes in its parameters' dtype.  Frames go through in chunks of
     ``chunk`` (a ragged tail is padded with its last frame and trimmed), one
-    postprocess kernel launch per chunk on the card.  ``device=None`` means
-    the GPU.
+    postprocess kernel launch per chunk on the card.  ``predict_video`` is
+    the dynamic (ConvGRU) mode.  ``device=None`` means the GPU.  A
+    ``timer`` (``pipeline.oneshot.StageTimer``) times ``predict_video``'s
+    stages.
     """
 
     def __init__(self, model, source: str = 'SALICON', chunk: int = 32,
@@ -73,6 +76,55 @@ class SaliencyPredictor:
         self.source = source
         self.chunk = chunk
         self.dtype = dtype
+        self.timer = None
+
+    def _stage(self, name: str):
+        return (self.timer.stage(name) if self.timer is not None
+                else contextlib.nullcontext())
+
+    def predict_video(self, frames, *, source: str = 'DHF1K',
+                      frame_modulo: int = 4, seq_len: int = 6,
+                      smooth_method: Optional[str] = None):
+        """Dynamic (ConvGRU) whole-video saliency with the reference's
+        interleaved frame-modulo scheme: each of the ``frame_modulo``
+        phase-offset subsequences runs through the recurrent model in
+        ``seq_len``-frame chunks (a ragged tail padded with its last frame,
+        then trimmed), the hidden state carried across chunks.
+        ``smooth_method`` (``'med<k>'``) median-smooths the interleaved
+        log-probabilities on the device; one postprocess launch then covers
+        the whole (T, H, W) stack.
+
+        (T, H, W, 3) uint8 frames (numpy or a tensor) -> (T, H, W) uint8
+        numpy maps.  Stages: ``chunks``, ``smooth``, ``postprocess``.
+        """
+        frames = torch.as_tensor(frames).to(self.device)
+        t, h, w, _ = frames.shape
+        net_hw = get_optimal_out_size((h, w))
+        with torch.inference_mode():
+            logps = torch.empty((t, h, w), dtype=torch.float32,
+                                device=self.device)
+            with self._stage('chunks'):
+                for offset in range(min(frame_modulo, t)):
+                    seq = frames[offset::frame_modulo]
+                    out = logps[offset::frame_modulo]
+                    h0 = None
+                    for s in range(0, len(seq), seq_len):
+                        batch = seq[s:s + seq_len]
+                        n = len(batch)
+                        if n < seq_len:          # ragged tail: pad, trim
+                            batch = torch.cat([batch, batch[-1:].expand(
+                                seq_len - n, -1, -1, -1)])
+                        x = preprocess_frames(batch, net_hw).to(self.dtype)
+                        logp, h0 = self.model.forward_with_hidden(
+                            x[None], target_size=(h, w), source=source,
+                            static=False, h0=h0)
+                        out[s:s + n] = logp[0, :n, :, :, 0]
+            if smooth_method is not None:
+                with self._stage('smooth'):
+                    logps = smooth_sequence(logps, smooth_method)
+            with self._stage('postprocess'):
+                maps = saliency_postprocess(logps)
+        return maps.cpu().numpy()
 
     def predict(self, frames, return_device: bool = False):
         """(T, H, W, 3) uint8 frames (numpy or a tensor) -> (T, H, W) uint8

@@ -1,1 +1,2 @@
-"""Host utilities: the stage timing registry and debug plots."""
+"""Host utilities: the stage timing registry, debug plots and the temporal
+smoother."""

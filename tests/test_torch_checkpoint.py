@@ -45,10 +45,11 @@ def _args(**kw):
 
 
 def test_unisal_state_dict_matches_jax_loader(state_dict, tmp_path):
-    """Every parameter and statistic equals the JAX loader's tree carried
-    across by ``convert``; the CLI flag loads the same (a ``.pth`` holding
-    ``model_state_dict``); the static forward matches the JAX forward's
-    committed golden on its seeded input."""
+    """Every parameter and statistic, the ConvGRU's ``rnn``/``post_rnn``
+    included, equals the JAX loader's tree carried across by ``convert``;
+    the CLI flag loads the same (a ``.pth`` holding ``model_state_dict``);
+    the static forward matches the JAX forward's committed golden on its
+    seeded input."""
     from retargetvid_tpu.models.torch_import import load_unisal_variables
     from retargetvid_tpu.models.unisal import UNISAL as JUNISAL
     from retargetvid_tpu_torch.cli import _load_unisal
@@ -63,8 +64,8 @@ def test_unisal_state_dict_matches_jax_loader(state_dict, tmp_path):
         JUNISAL(), state_dict,
         example_input=jnp.zeros((1, 1, 64, 64, 3), jnp.float32))
     ref = load_flax_variables(
-        UNISAL(), jax.tree_util.tree_map(np.asarray, variables),
-        skip=('rnn', 'post_rnn')).state_dict()
+        UNISAL(), jax.tree_util.tree_map(np.asarray, variables)).state_dict()
+    assert sum(k.startswith(('rnn.', 'post_rnn.')) for k in ref) > 100
     with pytest.warns(UserWarning, match='unconsumed'):
         sd = dict(state_dict, extra_key=np.zeros(3, np.float32))
         got = load_unisal_state_dict(UNISAL(), sd).state_dict()

@@ -31,11 +31,23 @@ def test_port_imports_no_jax():
     mods = _port_modules()
     assert len(mods) >= 20, mods
     for name in ('cli', 'pipeline.crop', 'pipeline.render', 'io.video',
-                 'eval.harness', 'models.torch_import', 'utils.timing'):
+                 'eval.harness', 'models.torch_import', 'utils.timing',
+                 'models.convgru', 'utils.sequence', 'train.data',
+                 'io.native_reader', 'models.shot_scoring',
+                 'models.transnet_post'):
         assert f'retargetvid_tpu_torch.{name}' in mods, name
     code = ('import importlib, sys\n'
             f'for m in {mods!r}: importlib.import_module(m)\n'
             'import chip_smoke, kernel_turns\n'
+            # ``cli predict`` on a missing file runs until the reader finds
+            # no frames, so it has imported all it uses.
+            'from retargetvid_tpu_torch.cli import main\n'
+            'try:\n'
+            "    main(['predict', 'missing.mp4', '--device', 'cpu'])\n"
+            'except FileNotFoundError:\n'
+            '    pass\n'
+            'else:\n'
+            "    sys.exit('cli predict read frames from a missing file')\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'flax' or m.startswith('flax.') "
             "or m == 'retargetvid_tpu' or m.startswith('retargetvid_tpu.'))\n"
@@ -129,6 +141,7 @@ def _host_entry_points(tmp_path):
         'cli crop': lambda: main(['crop', str(pkl)]),
         'cli benchmark': lambda: main(['benchmark', '--videos',
                                        str(tmp_path)]),
+        'cli predict': lambda: main(['predict', str(tmp_path)]),
     }
 
 
