@@ -5,9 +5,9 @@
 
 Run from the root of a checkout.  It drives the port's paths -- the
 one-shot clip program, raw frames to crop boxes, the two-dispatch path, the
-streaming ingest with ``smart_vid_crop`` and the ``crop`` command, and
-dynamic (ConvGRU) saliency -- at full model width and fails (exit code !=
-0) if any phase fails:
+streaming ingest with ``smart_vid_crop`` and the ``crop`` command, dynamic
+(ConvGRU) saliency, and UNISAL training -- at full model width and fails
+(exit code != 0) if any phase fails:
 
   (a) build: compile every CUDA kernel of the port from ``csrc/`` (one
       ``nvcc`` per source, started together) and report the seconds;
@@ -69,6 +69,22 @@ dynamic (ConvGRU) saliency -- at full model width and fails (exit code !=
       one clip the kernel's maps against numpy's tail of the JAX package
       (``exp``, max-normalize, uint8 in host float32) on the same
       log-probabilities: the pixels that differ, at most 1 LSB apart;
+  (m) training: ``Trainer.fit`` of full-width UNISAL (default config:
+      ``bn_train``, dropout live, seeded weights, float32 with TF32 as the
+      card defaults) for 2 epochs of 6 DHF1K (4, 12, 224, 384) and 3
+      SALICON (4, 1, 288, 384) seeded in-memory batches plus 2 + 1 valid
+      batches, ``train_cnn_after=1``, ``chkpnt_warmup=0``, into a temporary
+      directory: the median CUDA-event ms per train step by (source,
+      frozen/trained backbone) and per eval step, frames trained per
+      second, the peak of ``torch.cuda.max_memory_allocated``; it fails
+      unless every loss is finite, only the trained sources' and the
+      shared BatchNorm statistics moved (never the backbone's; one DHF1K
+      step moves DHF1K's only), 10 steps on one batch lower its loss,
+      ``save_chkpnt`` -> ``load_chkpnt`` gives identical tensors and
+      ``Trainer.json`` round-trips, ``score_model`` is finite, and
+      ``run_inference`` on the bench clip (DHF1K) returns (480, 360, 640)
+      uint8 maps and finite scores with exactly one kernel launch, and on
+      its first 81 frames as SALICON (static) three;
   (d) exactness, in float32 with TF32 off, under the ICIP and the ISM
       preset: the main-path clip once through the kernel and once through
       the plain postprocess gives identical boxes; each ratio of
@@ -88,11 +104,15 @@ dynamic (ConvGRU) saliency -- at full model width and fails (exit code !=
       24-frame 72x128 clip through ``predict_video`` (the narrow UNISAL
       with its ConvGRU), plain and with ``med3``, gives maps within 1 LSB
       on the card and on the CPU, and ``seq_len`` 2 within 1 LSB of
-      ``seq_len`` 9 on the card (the hidden state carried across chunks).
+      ``seq_len`` 9 on the card (the hidden state carried across chunks);
+      3 train steps of the narrow UNISAL from the same weights (statistics
+      drawn from a seed) and batch, every dropout mask all ones, give
+      losses within 1e-4 relative and parameters and statistics within
+      1e-4 in relative L2 on the card and on the CPU.
 
 ``--profile DIR`` adds one ``torch.profiler`` run of a clip on each of
 the main path, the ISM main path, the two streaming phases and
-``predict_video`` (device busy
+``predict_video``, and of one DHF1K and one SALICON train step (device busy
 time, idle share, kernel launches, the postprocess kernel's own device
 time; the per-operator tables go to ``DIR/profile_<phase>.txt``).
 
@@ -1066,6 +1086,351 @@ def phase_predict_video(card, bench, profile_dir=None):
     return sum(launches['none']), sum(launches['med41'])
 
 
+#: ``cli train``'s default batch size with the datasets' default clip and
+#: grid: DHF1K (B, T, H, W) = (4, 12, 224, 384), SALICON (4, 1, 288, 384).
+TRAIN_SHAPES = {'DHF1K': (4, 12, 224, 384), 'SALICON': (4, 1, 288, 384)}
+
+
+class MemLoader:
+    """Zero-arg batch-iterator factory over batches held on the card."""
+
+    def __init__(self, batches):
+        self.batches = batches
+        self.n_batches = len(batches)
+
+    def __call__(self):
+        return iter(self.batches)
+
+
+def train_batches(source, n, seed):
+    """``n`` seeded numpy batches of ``source``'s shape, moved to the card:
+    normal frames, saliency normalized to a distribution per frame, 0.5%
+    of pixels fixated."""
+    import torch
+    b, t, h, w = TRAIN_SHAPES[source]
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        x = rng.standard_normal((b, t, h, w, 3), dtype=np.float32)
+        sal = rng.random((b, t, h, w, 1), dtype=np.float32) ** 4
+        sal /= sal.sum(axis=(2, 3, 4), keepdims=True)
+        fix = (rng.random((b, t, h, w, 1), dtype=np.float32)
+               > 0.995).astype(np.float32)
+        out.append(tuple(torch.from_numpy(a).cuda() for a in (x, sal, fix)))
+    return out
+
+
+def bn_stats(model):
+    return {n: b.detach().clone() for n, b in model.named_buffers()
+            if n.endswith(('running_mean', 'running_var'))}
+
+
+def moved_stats(before, model):
+    import torch
+    now = bn_stats(model)
+    return sorted(n for n in before if not torch.equal(before[n], now[n]))
+
+
+class StepTimes:
+    """CUDA-event times and peak allocated bytes of wrapped calls, by
+    key."""
+
+    def __init__(self):
+        self.ms = {}
+        self.peak = {}
+
+    def wrap(self, key, fn):
+        import torch
+
+        def timed(*args):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.reset_peak_memory_stats()
+            start.record()
+            out = fn(*args)
+            end.record()
+            end.synchronize()
+            self.ms.setdefault(key, []).append(start.elapsed_time(end))
+            self.peak[key] = max(self.peak.get(key, 0),
+                                 torch.cuda.max_memory_allocated())
+            return out
+
+        return timed
+
+
+def batch_stat_loss(model, x, sal, fix):
+    """The DHF1K loss of one forward with the batch's statistics and no
+    dropout; the running statistics are left as they were."""
+    import torch
+
+    from retargetvid_tpu_torch.train.losses import loss_sequences
+    saved = bn_stats(model)
+    with torch.no_grad():
+        logp = model(x, source='DHF1K', static=False)
+        kld, nss, cc = (torch.mean(v) for v in
+                        loss_sequences(logp, sal, fix))
+    buffers = dict(model.named_buffers())
+    for n, v in saved.items():
+        buffers[n].copy_(v)
+    return float(kld - 0.1 * nss - 0.1 * cc)
+
+
+def check_stats_moved(moved, active, label):
+    """Only ``active`` sources' and the shared BatchNorms' statistics
+    moved, the backbone's did not, and the active ones did."""
+    others = [s for s in ('dhf1k', 'hollywood', 'ucfsports', 'salicon')
+              if s not in active]
+    bad = [n for n in moved if n.startswith('cnn.')
+           or any(f'bn_{s}.' in n for s in others)]
+    if bad:
+        fail(f'{label}: statistics moved that must not: {bad[:4]}')
+    for s in active:
+        if not any(f'bn_{s}.' in n for n in moved):
+            fail(f'{label}: no {s} statistic moved')
+    if not any(n.startswith('post_cnn.') for n in moved):
+        fail(f'{label}: the shared post_cnn statistics did not move')
+
+
+def inference_targets(frames):
+    """Saliency (the frames' brightness) and 6 fixations per frame (the
+    brightest pixel and 5 seeded ones) of a (T, H, W, 3) card clip, host
+    numpy."""
+    gray = frames.float().mean(-1)
+    t, h, w = gray.shape
+    fix = np.zeros((t, h, w), np.float32)
+    top = gray.reshape(t, -1).argmax(1).cpu().numpy()
+    fix.reshape(t, -1)[np.arange(t), top] = 1.0
+    rng = np.random.default_rng(11)
+    fix[np.repeat(np.arange(t), 5), rng.integers(0, h, 5 * t),
+        rng.integers(0, w, 5 * t)] = 1.0
+    return gray.cpu().numpy(), fix
+
+
+def phase_train(card, bench, profile_dir=None):
+    """UNISAL training at full width (see the module docstring, (m));
+    returns the kernel's launches of ``run_inference`` on a dynamic and
+    on a static source."""
+    import tempfile
+
+    import torch
+
+    from retargetvid_tpu_torch.kernels.postprocess import saliency_postprocess
+    from retargetvid_tpu_torch.train import trainer as trainer_mod
+    from retargetvid_tpu_torch.train.trainer import Trainer
+    loaders = {
+        'DHF1K': {'train': MemLoader(train_batches('DHF1K', 6, 0)),
+                  'valid': MemLoader(train_batches('DHF1K', 2, 1))},
+        'SALICON': {'train': MemLoader(train_batches('SALICON', 3, 2)),
+                    'valid': MemLoader(train_batches('SALICON', 1, 3))},
+    }
+    tr = Trainer(num_epochs=2, train_cnn_after=1, steps_per_epoch=9)
+    tr.init_state(rng_seed=0)
+    before = bn_stats(tr.model)
+    times = StepTimes()
+    step_fn, make_eval = tr.step_fn, trainer_mod.make_eval_step
+    tr.step_fn = lambda src, static, cnn: times.wrap(
+        (src, 'train_cnn' if cnn else 'frozen_cnn'), step_fn(src, static,
+                                                             cnn))
+    trainer_mod.make_eval_step = lambda model, **kw: times.wrap(
+        (kw['source'], 'eval'), make_eval(model, **kw))
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        try:
+            best = tr.fit(loaders, tmp, chkpnt_warmup=0)
+        finally:
+            tr.step_fn = step_fn
+            trainer_mod.make_eval_step = make_eval
+        fit_s = time.perf_counter() - t0
+        files = sorted(p.name for p in Path(tmp).iterdir())
+        losses = [v for epoch in tr.history for v in epoch.values()]
+        if not np.isfinite(losses).all():
+            fail(f'train: a loss is not finite: {tr.history}')
+        check_stats_moved(moved_stats(before, tr.model),
+                          ('dhf1k', 'salicon'), 'train fit')
+        # Checkpoint round trip through Trainer.json.
+        path = tr.save_chkpnt(tmp, 99)
+        back = Trainer.init_from_cfg_dir(tmp)
+        back.load_chkpnt(path)
+        if back.asdict() != tr.asdict():
+            fail('train: Trainer.json does not round-trip')
+        sd, sd2 = tr.model.state_dict(), back.model.state_dict()
+        same = all(torch.equal(sd[k], sd2[k]) for k in sd) and all(
+            torch.equal(v, back.state.opt_state['trace'][n])
+            for n, v in tr.state.opt_state['trace'].items()) and (
+            back.state.step, back.state.opt_state['count']) == (
+            tr.state.step, tr.state.opt_state['count'])
+        if not same:
+            fail('train: save_chkpnt -> load_chkpnt changed a tensor')
+        del back
+    scores = tr.score_model(loaders['DHF1K']['valid'](), source='DHF1K')
+    if not all(np.isfinite(v) for v in scores.values()):
+        fail(f'train: score_model gave {scores}')
+
+    # One source's step: its statistics move, no other source's, never the
+    # backbone's; 10 steps on one fixed batch lower its loss (a forward
+    # with the batch's statistics and no dropout: the running statistics
+    # have moved only 10% of the way at momentum 0.99).
+    ov = Trainer(steps_per_epoch=10)
+    ov.init_state(rng_seed=5)
+    batch = loaders['DHF1K']['train'].batches[0]
+    loss0 = batch_stat_loss(ov.model, *batch)
+    before = bn_stats(ov.model)
+    step = ov.step_fn('DHF1K', False, True)
+    for i in range(10):
+        ov.state, _ = step(ov.state, *batch)
+        if i == 0:
+            check_stats_moved(moved_stats(before, ov.model), ('dhf1k',),
+                              'one DHF1K step')
+    loss10 = batch_stat_loss(ov.model, *batch)
+    if not loss10 < loss0:
+        fail(f'train: 10 steps on one batch did not lower its loss '
+             f'({loss0} -> {loss10})')
+    if profile_dir is not None:
+        for src in ('DHF1K', 'SALICON'):
+            batch = loaders[src]['train'].batches[0]
+            prof_step = ov.step_fn(src, src == 'SALICON', True)
+
+            def one():
+                ov.state, _ = prof_step(ov.state, *batch)
+            one()
+            profile_clip(card, one, Path(profile_dir),
+                         f'train_step_{src.lower()}')
+    del ov
+
+    # run_inference: the bench clip through the dynamic path (one kernel
+    # launch), its first 81 frames through the static one (3); timed for
+    # the maps alone, then with the host's numpy scoring.
+    clip = bench.clips[0]
+    sal, fix = inference_targets(clip)
+    launches, ms = {}, {}
+    for label, source, frames in (('dynamic', 'DHF1K', clip),
+                                  ('static', 'SALICON', clip[:81])):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.run_inference(frames, source=source)
+        ms[f'{label}_maps'] = (time.perf_counter() - t0) * 1e3
+        saliency_postprocess.launches = 0
+        t0 = time.perf_counter()
+        maps, inf_scores = tr.run_inference(frames, source=source,
+                                            sal=sal[:len(frames)],
+                                            fix=fix[:len(frames)])
+        ms[f'{label}_maps_and_scores'] = (time.perf_counter() - t0) * 1e3
+        launches[label] = saliency_postprocess.launches
+        want = 1 if label == 'dynamic' else -(-len(frames) // 32)
+        if launches[label] != want:
+            fail(f'train run_inference {label}: {launches[label]} kernel '
+                 f'launches (expected {want})')
+        if maps.shape != tuple(frames.shape[:3]) or maps.dtype != np.uint8:
+            fail(f'train run_inference {label}: maps {maps.shape} '
+                 f'{maps.dtype}')
+        if set(inf_scores) != {'kld', 'nss', 'cc', 'sim', 'aucj'} or not \
+                all(np.isfinite(v) for v in inf_scores.values()):
+            fail(f'train run_inference {label}: scores {inf_scores}')
+        scores[f'run_inference_{label}'] = inf_scores
+
+    def med(key):
+        return statistics.median(times.ms[key]) if key in times.ms else None
+
+    train_keys = [k for k in times.ms if k[1] != 'eval']
+    n_frames = sum(len(times.ms[k]) * TRAIN_SHAPES[k[0]][0]
+                   * TRAIN_SHAPES[k[0]][1] for k in train_keys)
+    step_ms = sum(sum(times.ms[k]) for k in train_keys)
+    median_step_ms = sum(med(k) * len(times.ms[k]) for k in train_keys)
+    emit(card, phase='train', model='UNISAL full width (MobileNetV2 1.0, '
+         'ConvGRU 256, 41-tap smoothing), bn_train, drop_probs '
+         '(0.0, 0.6, 0.6), float32 (TF32 as the card defaults)',
+         shapes={k: list(v) for k, v in TRAIN_SHAPES.items()},
+         epochs=2, train_batches={'DHF1K': 6, 'SALICON': 3},
+         valid_batches={'DHF1K': 2, 'SALICON': 1}, train_cnn_after=1,
+         step_median_ms={f'{k[0]}/{k[1]}': med(k) for k in times.ms},
+         step_first_ms={f'{k[0]}/{k[1]}': v[0] for k, v in times.ms.items()},
+         step_count={f'{k[0]}/{k[1]}': len(v) for k, v in times.ms.items()},
+         train_frames_per_s=n_frames / step_ms * 1e3,
+         train_frames_per_s_at_median_steps=n_frames / median_step_ms * 1e3,
+         fit_s=fit_s,
+         max_memory_allocated_bytes={f'{k[0]}/{k[1]}': v
+                                     for k, v in times.peak.items()},
+         best_val_score=best,
+         files=files, overfit_batch_stat_loss=[loss0, loss10],
+         scores=scores,
+         run_inference_ms=ms, run_inference_launches=launches)
+    return launches['dynamic'], launches['static']
+
+
+def draw_stats(model, seed):
+    """BatchNorm running statistics drawn from ``seed`` (means N(0, 0.2),
+    variances U(0.5, 1.5)).  With the init's zero means and biases, exact
+    zeros run through the backbone and leave whole channels of the
+    decoder's train-mode BatchNorm with zero variance, where rounding
+    times 1/sqrt(eps) decides ReLU6 gates: a comparison of two devices
+    would measure that, not the port."""
+    import torch
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, buf in model.named_buffers():
+            if name.endswith('running_mean'):
+                buf.copy_(0.2 * torch.randn(buf.shape, generator=gen))
+            elif name.endswith('running_var'):
+                buf.copy_(0.5 + torch.rand(buf.shape, generator=gen))
+
+
+def train_card_vs_cpu():
+    """3 train steps of the narrow UNISAL (float32, TF32 off, every dropout
+    mask all ones, statistics drawn from a seed) from the same weights and
+    DHF1K batch on the card and on the CPU: losses within 1e-4 relative,
+    parameters and statistics within 1e-4 in relative L2 (chained steps
+    move single entries by more: see ``tests/test_torch_trainer.py``).
+    Returns the differences."""
+    import torch
+
+    from retargetvid_tpu_torch.convert import state_dict_to_flax
+    from retargetvid_tpu_torch.models import dropout
+    from retargetvid_tpu_torch.train.trainer import Trainer
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((2, 3, 64, 64, 3), dtype=np.float32)
+    sal = rng.random((2, 3, 64, 64, 1), dtype=np.float32) ** 2
+    sal /= sal.sum(axis=(2, 3, 4), keepdims=True)
+    fix = (rng.random((2, 3, 64, 64, 1)) > 0.98).astype(np.float32)
+    real = dropout.keep_mask
+    dropout.keep_mask = lambda shape, keep, gen: torch.ones(
+        tuple(shape), dtype=torch.bool, device=gen.device)
+    try:
+        trainers = {d: Trainer(model_cfg=TINY_UNISAL, device=d,
+                               steps_per_epoch=2)
+                    for d in ('cuda', 'cpu')}
+        trainers['cpu'].init_state(rng_seed=3)
+        draw_stats(trainers['cpu'].model, 3)
+        trainers['cuda'].init_state(
+            variables=state_dict_to_flax(trainers['cpu'].model))
+        losses = {}
+        for d, tr in trainers.items():
+            step = tr.step_fn('DHF1K', False, True)
+            losses[d] = []
+            for _ in range(3):
+                tr.state, out = step(tr.state, *(tr._batch(a)
+                                                 for a in (x, sal, fix)))
+                losses[d].append(float(out['loss']))
+    finally:
+        dropout.keep_mask = real
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses['cuda'],
+                                                      losses['cpu']))
+    card = trainers['cuda'].model.state_dict()
+    host = {k: v.float() for k, v in trainers['cpu'].model.state_dict().items()
+            if v.is_floating_point()}
+    diff = {k: card[k].cpu().float() - v for k, v in host.items()}
+    state_err = float(torch.sqrt(sum((d * d).sum() for d in diff.values()))
+                      / torch.sqrt(sum((v * v).sum() for v in host.values())))
+    worst = max(diff, key=lambda k: float(diff[k].abs().max()))
+    if loss_err > 1e-4 or state_err > 1e-4:
+        fail(f'train card vs CPU: losses {losses}, parameters and '
+             f'statistics {state_err} apart (relative L2)')
+    return {'losses': losses, 'loss_max_rel_diff': loss_err,
+            'state_rel_l2_diff': state_err, 'tolerance': 1e-4,
+            'state_max_abs_diff': float(diff[worst].abs().max()),
+            'state_max_abs_diff_at': worst}
+
+
 def profile_clip(card, run, out_dir: Path, name: str):
     """``torch.profiler`` over one more clip (``run()``): device busy time
     against the wall time, kernel launches, and the per-operator table
@@ -1149,6 +1514,12 @@ def small_clip(fc=48, h=72, w=128):
     return frames
 
 
+#: The test suite's narrow UNISAL (``tests/conftest.py:TINY_UNISAL_CFG``).
+TINY_UNISAL = dict(cnn_widen_factor=0.25, cnn_last_channel=None,
+                   rnn_input_channels=32, rnn_hidden_channels=32,
+                   smoothing_ksize=11, smoothing_rank=4)
+
+
 def small_models(device):
     """Full-width TransNet (head biased) and the narrow UNISAL of the test
     suite (with its ConvGRU, registered after every other module), from the
@@ -1158,13 +1529,10 @@ def small_models(device):
     from retargetvid_tpu_torch.models.init import seeded_init_
     from retargetvid_tpu_torch.models.transnet import TransNetV1
     from retargetvid_tpu_torch.models.unisal import UNISAL
-    tiny = dict(cnn_widen_factor=0.25, cnn_last_channel=None,
-                rnn_input_channels=32, rnn_hidden_channels=32,
-                smoothing_ksize=11, smoothing_rank=4)
     tn = seeded_init_(TransNetV1(), 0)
     with torch.no_grad():
         tn.dense2.bias.copy_(torch.tensor([5.0, -5.0]))
-    return tn.to(device), seeded_init_(UNISAL(**tiny), 1).to(device)
+    return tn.to(device), seeded_init_(UNISAL(**TINY_UNISAL), 1).to(device)
 
 
 def small_clip_paths(device, models, frames, cp, all_plans=True,
@@ -1469,6 +1837,7 @@ def phase_exact(card):
     stream = {name: stream_card_vs_cpu(name, models, cp)
               for name, cp in presets.items()}
     dynamic = predict_video_card_vs_cpu(models)
+    train = train_card_vs_cpu()
     emit(card, phase='exact_float32', dtype='float32', tf32=False,
          kernel_vs_plain_boxes_differing_frames=n_box_diff,
          ism_geometry_focus_card_vs_cpu=focus,
@@ -1477,7 +1846,8 @@ def phase_exact(card):
          multi_ratio_boxes_equal_to_run=True,
          small_clip_card_vs_cpu_max_box_px=box_err,
          stream_small_clip_card_vs_cpu=stream, tolerance_px=1,
-         predict_video_small_clip=dynamic, predict_video_tolerance_lsb=1)
+         predict_video_small_clip=dynamic, predict_video_tolerance_lsb=1,
+         train_steps_card_vs_cpu=train)
 
 
 def main():
@@ -1527,6 +1897,9 @@ def main():
     (record['launches_by_path']['predict_video'],
      record['launches_by_path']['predict_video_med41']) = \
         phase_predict_video(card, bench, args.profile)
+    (record['launches_by_path']['train_run_inference'],
+     record['launches_by_path']['train_run_inference_static']) = \
+        phase_train(card, bench, args.profile)
     with exact_float32():
         phase_exact(card)
     if 'jax' in sys.modules:

@@ -1,6 +1,6 @@
 """Command-line interface of the PyTorch port.
 
-    python -m retargetvid_tpu_torch.cli {crop,benchmark,eval,predict} ...
+    python -m retargetvid_tpu_torch.cli {crop,benchmark,eval,predict,train,score}
 
 Port of ``retargetvid_tpu/cli.py``'s user entry points, which mirror the
 reference's:
@@ -15,6 +15,12 @@ reference's:
 - ``predict``: saliency maps of a folder of images or a video file
   (reference ``run.py predict_examples``), static or ``--dynamic``
   (the ConvGRU over interleaved frame-modulo sequences).
+- ``train``: train UNISAL on the datasets located by ``DHF1K_DATA_DIR``
+  etc. (reference ``run.py train`` -> ``Trainer.fit``), optionally
+  ``--fine-tune-mit``; the run directory holds ``Trainer.json``, the
+  checkpoints and the best weights in the JAX package's format.
+- ``score``: score a trained run directory (reference ``run.py
+  score_model``), rebuilt from its ``Trainer.json``.
 
 Model weights: ``--unisal-weights`` (the reference's torch
 ``weights_best.pth``) and ``--transnet-weights`` (the ``{'params': ...}``
@@ -389,6 +395,141 @@ def cmd_predict(args):
     print(f' wrote {len(names)} saliency maps to {out_dir}')
 
 
+_DATASETS = {}
+
+
+def _dataset_classes():
+    if not _DATASETS:
+        from retargetvid_tpu_torch.train.data import (
+            DHF1KDataset,
+            HollywoodDataset,
+            MIT1003Dataset,
+            SALICONDataset,
+            UCFSportsDataset,
+        )
+        _DATASETS.update({
+            'DHF1K': DHF1KDataset, 'Hollywood': HollywoodDataset,
+            'UCFSports': UCFSportsDataset, 'SALICON': SALICONDataset,
+            'MIT1003': MIT1003Dataset,
+        })
+    return _DATASETS
+
+
+class _SampleLoader:
+    """Batch-iterator factory over a dataset's ``sample()`` method."""
+
+    def __init__(self, dataset, n_batches: int, batch_size: int):
+        self.dataset = dataset
+        self.n_batches = n_batches
+        self.batch_size = batch_size
+
+    def __call__(self):
+        for _ in range(self.n_batches):
+            yield self.dataset.sample(self.batch_size)
+
+
+class _MITLoader:
+    """ImgSizeBatchSampler-backed loader for MIT1003."""
+
+    def __init__(self, dataset, batch_size: int):
+        from retargetvid_tpu_torch.train.data import ImgSizeBatchSampler
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.n_batches = len(ImgSizeBatchSampler(dataset,
+                                                 batch_size=batch_size))
+
+    def __call__(self):
+        return self.dataset.batches(self.batch_size)
+
+
+def _build_dataloaders(sources, *, batch_size: int, batches_per_epoch: int,
+                       valid_batches: int, seq_len=None, device=None):
+    loaders = {}
+    for src in sources:
+        cls = _dataset_classes()[src]
+        if src == 'MIT1003':
+            loaders[src] = {
+                phase: _MITLoader(cls(phase=phase, device=device), batch_size)
+                for phase in ('train', 'valid')}
+        else:
+            kw = {'device': device}
+            if seq_len is not None and src != 'SALICON':
+                kw['seq_len'] = seq_len
+            loaders[src] = {
+                'train': _SampleLoader(cls(phase='train', **kw),
+                                       batches_per_epoch, batch_size),
+                'valid': _SampleLoader(cls(phase='valid', **kw),
+                                       valid_batches, batch_size),
+            }
+    return loaders
+
+
+def cmd_train(args):
+    """Train UNISAL (reference ``run.py train`` -> ``Trainer.fit``)."""
+    import json
+
+    from retargetvid_tpu_torch.train.trainer import Trainer
+
+    sources = tuple(args.sources.split(','))
+    model_cfg = json.loads(args.model_cfg) if args.model_cfg else None
+    trainer = Trainer(num_epochs=args.num_epochs, lr=args.lr,
+                      data_sources=sources,
+                      train_cnn_after=args.train_cnn_after,
+                      model_cfg=model_cfg, device=args.device)
+    loaders = _build_dataloaders(
+        sources, batch_size=args.batch_size,
+        batches_per_epoch=args.batches_per_epoch,
+        valid_batches=args.valid_batches, seq_len=args.seq_len,
+        device=args.device)
+    best = trainer.fit(loaders, args.train_dir,
+                       chkpnt_warmup=args.chkpnt_warmup,
+                       chkpnt_epochs=args.chkpnt_epochs)
+    print(f'best val score: {best}')
+    if args.fine_tune_mit:
+        mit = _build_dataloaders(('MIT1003',), batch_size=args.batch_size,
+                                 batches_per_epoch=args.batches_per_epoch,
+                                 valid_batches=args.valid_batches,
+                                 device=args.device)
+        best_val, best_epoch = trainer.fine_tune_mit(mit, args.train_dir)
+        print(f'MIT1003 fine-tune: best val {best_val} @ epoch {best_epoch}')
+
+
+def cmd_score(args):
+    """Score a trained model (reference ``run.py score_model``).
+
+    The trainer (``model_cfg`` included) is rebuilt from the run's
+    ``Trainer.json``, then takes ``weights_best.pkl`` or else the last
+    checkpoint; either package's run directory loads.
+    """
+    from retargetvid_tpu_torch.train.trainer import Trainer
+
+    train_dir = Path(args.train_dir)
+    if (train_dir / 'Trainer.json').exists():
+        trainer = Trainer.init_from_cfg_dir(train_dir, device=args.device)
+    else:
+        trainer = Trainer(device=args.device)
+    chk = sorted(train_dir.glob('chkpnt_epoch*.pkl'))
+    best = train_dir / 'weights_best.pkl'
+    if best.exists():
+        trainer.init_state()
+        trainer.load_weights(best)
+        print(f' loaded {best}')
+    elif chk:
+        trainer.load_chkpnt(chk[-1])
+        print(f' loaded {chk[-1]}')
+    else:
+        raise FileNotFoundError(f'no weights under {train_dir}')
+    kw = {'device': args.device}
+    if args.seq_len is not None and args.source not in ('SALICON', 'MIT1003'):
+        kw['seq_len'] = args.seq_len
+    ds = _dataset_classes()[args.source](phase=args.phase, **kw)
+    batches = (ds.sample(args.batch_size) for _ in range(args.n_batches))
+    scores = trainer.score_model(batches, source=args.source)
+    for k, v in scores.items():
+        print(f'  {k}: {v:.4f}')
+    return scores
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog='retargetvid_tpu_torch',
@@ -476,6 +617,38 @@ def build_parser() -> argparse.ArgumentParser:
                     help="temporal smoother for --dynamic, e.g. 'med41'")
     add_device_arg(pr)
     pr.set_defaults(fn=cmd_predict)
+
+    t = sub.add_parser('train', help='train UNISAL (reference run.py train)')
+    t.add_argument('--train-dir', default=os.environ.get(
+        'TRAIN_DIR', 'training_runs/run'))
+    t.add_argument('--sources', default='DHF1K,Hollywood,UCFSports,SALICON')
+    t.add_argument('--num-epochs', type=int, default=16)
+    t.add_argument('--lr', type=float, default=0.04)
+    t.add_argument('--batch-size', type=int, default=4)
+    t.add_argument('--batches-per-epoch', type=int, default=1000)
+    t.add_argument('--valid-batches', type=int, default=100)
+    t.add_argument('--train-cnn-after', type=int, default=2)
+    t.add_argument('--seq-len', type=int, default=None,
+                   help='override dataset sequence length (frames per clip)')
+    t.add_argument('--chkpnt-warmup', type=int, default=3)
+    t.add_argument('--chkpnt-epochs', type=int, default=2)
+    t.add_argument('--fine-tune-mit', action='store_true')
+    t.add_argument('--model-cfg', default=None,
+                   help='JSON dict of UNISAL constructor overrides '
+                        '(persisted in Trainer.json and restored by score)')
+    add_device_arg(t)
+    t.set_defaults(fn=cmd_train)
+
+    sc = sub.add_parser('score', help='score a trained model '
+                                      '(reference run.py score_model)')
+    sc.add_argument('--train-dir', required=True)
+    sc.add_argument('--source', default='DHF1K')
+    sc.add_argument('--phase', default='valid')
+    sc.add_argument('--batch-size', type=int, default=4)
+    sc.add_argument('--n-batches', type=int, default=25)
+    sc.add_argument('--seq-len', type=int, default=None)
+    add_device_arg(sc)
+    sc.set_defaults(fn=cmd_score)
     return p
 
 

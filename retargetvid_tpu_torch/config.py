@@ -4,15 +4,20 @@ A copy of the SmartVidCrop parameter dict (reference
 ``smartVidCrop.py:132-209``) with its two presets, the ICIP-2021 defaults and
 the ISM-2021 "best settings", plus the two ingest constants the one-shot
 path needs.  Key names, including historical spellings such as
-``foces_stab_t``, are kept verbatim.
+``foces_stab_t``, are kept verbatim.  :class:`KwConfig` is the JSON round
+trip of a class's constructor arguments (``<ClassName>.json``), in the
+JAX package's format.
 """
 
 from __future__ import annotations
 
+import inspect
+import json
+from pathlib import Path
 from typing import Any
 
 __all__ = ["sc_init_crop_params", "smart_crop_version", "TRANS_THRESHOLD",
-           "sal_dims"]
+           "sal_dims", "KwConfig"]
 
 #: Transition probability threshold (reference ``smartVidCrop.py:64``).
 TRANS_THRESHOLD = 0.1
@@ -102,3 +107,43 @@ def sc_init_crop_params(print_dict: bool = False,
             print(k, ':', crop_params[k])
 
     return crop_params
+
+
+class KwConfig:
+    """Persist constructor kwargs to ``<ClassName>.json`` and reload
+    (``retargetvid_tpu/config.py:110-151``, reference
+    ``unisal/utils.py:28-44``).
+
+    Every ``__init__`` argument stored as a same-named, JSON-serializable
+    attribute is written, except those in ``config_exclude`` (runtime-only
+    arguments such as a device).
+    """
+
+    config_exclude: tuple = ()
+
+    def asdict(self) -> dict:
+        out = {}
+        for name in inspect.signature(self.__class__.__init__).parameters:
+            if name == 'self' or name in self.config_exclude:
+                continue
+            if hasattr(self, name):
+                val = getattr(self, name)
+                try:
+                    json.dumps(val)
+                except TypeError:
+                    continue
+                out[name] = val
+        return out
+
+    def save_cfg(self, directory) -> None:
+        directory = Path(directory)
+        directory.mkdir(parents=True, exist_ok=True)
+        with open(directory / f"{self.__class__.__name__}.json", 'w') as fp:
+            json.dump(self.asdict(), fp, indent=2)
+
+    @classmethod
+    def init_from_cfg_dir(cls, directory, **overrides):
+        with open(Path(directory) / f"{cls.__name__}.json") as fp:
+            cfg = json.load(fp)
+        cfg.update(overrides)
+        return cls(**cfg)

@@ -5,7 +5,8 @@ The port names its submodules after the JAX parameter tree, so a leaf at
 
 - conv kernels DHWIO -> OIDHW and HWIO -> OIHW (a depthwise (k, k, 1, C)
   becomes (C, 1, k, k); the smoothing factors (k, 1, 1, r) and (1, k, r, 1)
-  become (r, 1, k, 1) and (1, r, 1, k));
+  become (r, 1, k, 1) and (1, r, 1, k), the full smoothing kernel
+  (k, k, 1, 1) becomes (1, 1, k, k));
 - ``Dense`` kernels (in, out) -> ``Linear`` weights (out, in).  TransNet's
   ``dense1`` rows keep their (h, w, c) order because the port flattens
   channels-last, as the JAX model does;
@@ -14,20 +15,24 @@ The port names its submodules after the JAX parameter tree, so a leaf at
 
 The inputs are the JAX trees as nested dicts of numpy arrays
 (``jax.tree_util.tree_map(np.asarray, variables)``); nothing here imports
-JAX.
+JAX.  :func:`state_dict_to_flax` goes the other way, so the port writes
+weights and checkpoints in the JAX package's pickle format.
 """
 
 from __future__ import annotations
 
-from typing import Iterable
+from typing import Iterable, Optional
 
 import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["flax_to_state_dict", "load_flax_variables"]
+__all__ = ["flax_to_state_dict", "load_flax_variables",
+           "state_dict_to_flax", "flax_param_tree", "flax_name"]
 
 _STAT_NAMES = {'mean': 'running_mean', 'var': 'running_var'}
+#: Inverse axis orders of the kernel layouts above (OI... -> ...IO).
+_KERNEL_BACK = {5: (2, 3, 4, 1, 0), 4: (2, 3, 1, 0), 2: (1, 0)}
 
 
 def _flatten(tree, prefix=()):
@@ -43,7 +48,7 @@ def _param(path, value):
     if leaf == 'kernel':
         perm = {5: (4, 3, 0, 1, 2), 4: (3, 2, 0, 1), 2: (1, 0)}[value.ndim]
         return mods + ['weight'], value.transpose(perm)
-    if leaf.startswith('smoothing_v_') or leaf.startswith('smoothing_h_'):
+    if leaf.startswith('smoothing'):
         return mods + [leaf], value.transpose(3, 2, 0, 1)
     if leaf == 'scale':
         return mods + ['weight'], value
@@ -94,3 +99,58 @@ def load_flax_variables(module: nn.Module, variables: dict,
         state[k] = v.to(state[k].dtype)
     module.load_state_dict(state, strict=True)
     return module
+
+
+def flax_name(path) -> str:
+    """The port's parameter name of the JAX parameter at ``path`` (a
+    sequence of keys, e.g. ``('cnn', 'features_0', 'conv', 'kernel')``)."""
+    names, _ = _param(list(path), np.zeros((1,) * 4))
+    return '.'.join(names)
+
+
+def _nest(tree: dict, path, value) -> None:
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = value
+
+
+def flax_param_tree(module: nn.Module, values: Optional[dict] = None
+                    ) -> dict:
+    """The port's parameters as the JAX ``params`` tree (float32 numpy).
+    ``values`` (port name -> tensor, e.g. an optimizer trace) replaces the
+    parameters' own values; a parameter missing from it is left out."""
+    tree: dict = {}
+    for mod_name, mod in module.named_modules():
+        path = mod_name.split('.') if mod_name else []
+        is_bn = isinstance(mod, nn.modules.batchnorm._BatchNorm)
+        for name, p in mod.named_parameters(recurse=False):
+            if values is not None:
+                full = '.'.join(path + [name])
+                if full not in values:
+                    continue
+                p = values[full]
+            arr = p.detach().float().cpu().numpy()
+            if name == 'weight' and not is_bn:
+                _nest(tree, path + ['kernel'],
+                      arr.transpose(_KERNEL_BACK[arr.ndim]))
+            elif name == 'weight':
+                _nest(tree, path + ['scale'], arr)
+            elif name.startswith('smoothing'):
+                _nest(tree, path + [name], arr.transpose(2, 3, 1, 0))
+            else:
+                _nest(tree, path + [name], arr)
+    return tree
+
+
+def state_dict_to_flax(module: nn.Module) -> dict:
+    """The port's parameters and BatchNorm statistics as the JAX trees
+    ``{'params': ..., 'batch_stats': ...}`` of float32 numpy arrays (the
+    inverse of :func:`flax_to_state_dict`)."""
+    stats: dict = {}
+    for mod_name, mod in module.named_modules():
+        if isinstance(mod, nn.modules.batchnorm._BatchNorm):
+            path = mod_name.split('.') if mod_name else []
+            for flax_stat, buf in _STAT_NAMES.items():
+                _nest(stats, path + [flax_stat],
+                      getattr(mod, buf).detach().float().cpu().numpy())
+    return {'params': flax_param_tree(module), 'batch_stats': stats}

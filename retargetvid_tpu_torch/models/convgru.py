@@ -1,4 +1,4 @@
-"""Convolutional GRU (PyTorch, NCHW), inference.
+"""Convolutional GRU (PyTorch, NCHW).
 
 Port of ``retargetvid_tpu/models/convgru.py`` (reference
 ``unisal/models/cgru.py:16-375`` as UNISAL configures it): six mobile
@@ -13,9 +13,15 @@ biases (b_r, b_z, b_h):
 
 Time is a Python loop, as in the reference.  Submodule names follow the
 JAX tree (``rnn/cell/w_r/conv_dw/kernel`` -> ``rnn.cell.w_r.conv_dw.
-weight``), so ``convert`` maps every leaf by its path.  The recurrent
-dropout masks and train-mode BatchNorm are training features and are not
-ported.
+weight``), so ``convert`` maps every leaf by its path.
+
+Training (``retargetvid_tpu/models/convgru.py:113-173``): with
+``deterministic=False`` one keep mask per gate, shape (3, hidden), is drawn
+once per sequence through ``models/dropout.py:keep_mask`` (recurrent drop
+probability 0.2), shared over the batch and time and applied to ``h`` only,
+scaled by ``1/keep``.  The cell's BatchNorms run once per time step, so in
+train mode (``bn_train``) their statistics move at every step, as the JAX
+scan carries ``batch_stats``.
 """
 
 from __future__ import annotations
@@ -25,7 +31,13 @@ from typing import Sequence, Tuple
 import torch
 from torch import nn
 
-from retargetvid_tpu_torch.models.layers import DEFAULT_SOURCES, DomainBN, relu6
+from retargetvid_tpu_torch.models import dropout
+from retargetvid_tpu_torch.models.layers import (
+    DEFAULT_SOURCES,
+    apply_bn,
+    make_bn,
+    relu6,
+)
 
 __all__ = ["ConvGRUCell", "ConvGRU"]
 
@@ -37,16 +49,18 @@ class _MobileConv(nn.Module):
 
     def __init__(self, in_ch: int, out_ch: int,
                  ksize: Tuple[int, int] = (3, 3),
-                 sources: Sequence[str] = DEFAULT_SOURCES):
+                 sources: Sequence[str] = DEFAULT_SOURCES,
+                 ds_bn: bool = True):
         super().__init__()
         self.conv_dw = nn.Conv2d(in_ch, in_ch, ksize,
                                  padding=tuple(k // 2 for k in ksize),
                                  groups=in_ch, bias=False)
-        self.sep_bn = DomainBN(in_ch, sources)
+        self.sep_bn = make_bn(in_ch, ds_bn, sources)
         self.conv_sep = nn.Conv2d(in_ch, out_ch, 1, bias=False)
 
     def forward(self, x, source: str = 'DHF1K'):
-        return self.conv_sep(relu6(self.sep_bn(self.conv_dw(x), source)))
+        return self.conv_sep(relu6(apply_bn(self.sep_bn, self.conv_dw(x),
+                                            source)))
 
 
 class ConvGRUCell(nn.Module):
@@ -56,17 +70,22 @@ class ConvGRUCell(nn.Module):
     def __init__(self, input_ch: int, hidden_ch: int,
                  kernel_size: Tuple[int, int] = (3, 3),
                  gate_ksize: Tuple[int, int] = (3, 3),
-                 sources: Sequence[str] = DEFAULT_SOURCES):
+                 sources: Sequence[str] = DEFAULT_SOURCES,
+                 ds_bn: bool = True):
         super().__init__()
-        self.w_r = _MobileConv(input_ch, hidden_ch, gate_ksize, sources)
-        self.u_r = _MobileConv(hidden_ch, hidden_ch, gate_ksize, sources)
-        self.w_z = _MobileConv(input_ch, hidden_ch, gate_ksize, sources)
-        self.u_z = _MobileConv(hidden_ch, hidden_ch, gate_ksize, sources)
-        self.w = _MobileConv(input_ch, hidden_ch, kernel_size, sources)
-        self.u = _MobileConv(hidden_ch, hidden_ch, gate_ksize, sources)
+
+        def conv(in_ch, ksize):
+            return _MobileConv(in_ch, hidden_ch, ksize, sources, ds_bn)
+
+        self.w_r = conv(input_ch, gate_ksize)
+        self.u_r = conv(hidden_ch, gate_ksize)
+        self.w_z = conv(input_ch, gate_ksize)
+        self.u_z = conv(hidden_ch, gate_ksize)
+        self.w = conv(input_ch, kernel_size)
+        self.u = conv(hidden_ch, gate_ksize)
         for name in ('norm_r_x', 'norm_r_h', 'norm_z_x', 'norm_z_h',
                      'norm_out_x', 'norm_out_h'):
-            setattr(self, name, DomainBN(hidden_ch, sources))
+            setattr(self, name, make_bn(hidden_ch, ds_bn, sources))
         for g in _GATES:
             for side in ('x', 'h'):
                 setattr(self, f'a_{g}_{side}',
@@ -74,20 +93,26 @@ class ConvGRUCell(nn.Module):
         for g in _GATES:
             setattr(self, f'b_{g}', nn.Parameter(torch.zeros(hidden_ch)))
 
-    def forward(self, x, h, source: str = 'DHF1K'):
+    def forward(self, x, h, source: str = 'DHF1K', drop_h=None):
+        """``drop_h``: (3, C) recurrent keep masks (already scaled by
+        ``1/keep``), one per gate, applied to ``h``."""
         def ch(p):                                  # (C,) -> (1, C, 1, 1)
             return p[None, :, None, None]
 
+        def dh(i):
+            return h if drop_h is None else h * ch(drop_h[i])
+
         def branch(conv, norm, scale, v):
-            return getattr(self, norm)(getattr(self, conv)(v, source),
-                                       source) * ch(getattr(self, scale))
+            return apply_bn(getattr(self, norm),
+                            getattr(self, conv)(v, source),
+                            source) * ch(getattr(self, scale))
 
         r_x = branch('w_r', 'norm_r_x', 'a_r_x', x)
-        r_h = branch('u_r', 'norm_r_h', 'a_r_h', h)
+        r_h = branch('u_r', 'norm_r_h', 'a_r_h', dh(0))
         z_x = branch('w_z', 'norm_z_x', 'a_z_x', x)
-        z_h = branch('u_z', 'norm_z_h', 'a_z_h', h)
+        z_h = branch('u_z', 'norm_z_h', 'a_z_h', dh(1))
         h_x = branch('w', 'norm_out_x', 'a_h_x', x)
-        h_h = branch('u', 'norm_out_h', 'a_h_h', h)
+        h_h = branch('u', 'norm_out_h', 'a_h_h', dh(2))
         r = torch.sigmoid(r_x + r_h + ch(self.b_r))
         z = torch.sigmoid(z_x + z_h + ch(self.b_z))
         c = torch.tanh(h_x + r * h_h + ch(self.b_h))
@@ -98,24 +123,34 @@ class ConvGRU(nn.Module):
     """Single-layer ConvGRU over (B, T, C, H, W) sequences.
 
     Returns (outputs (B, T, hidden_ch, H, W), final hidden
-    (B, hidden_ch, H, W)); ``h0`` defaults to zeros.
+    (B, hidden_ch, H, W)); ``h0`` defaults to zeros.  ``drop_prob`` is
+    JAX's fixed (x, h, out) triple; only the recurrent entry is used.
     """
 
     def __init__(self, input_ch: int, hidden_ch: int,
                  kernel_size: Tuple[int, int] = (3, 3),
                  gate_ksize: Tuple[int, int] = (3, 3),
-                 sources: Sequence[str] = DEFAULT_SOURCES):
+                 drop_prob: Tuple[float, float, float] = (0.0, 0.2, 0.0),
+                 sources: Sequence[str] = DEFAULT_SOURCES,
+                 ds_bn: bool = True):
         super().__init__()
         self.hidden_ch = hidden_ch
+        self.drop_prob = tuple(drop_prob)
         self.cell = ConvGRUCell(input_ch, hidden_ch, kernel_size, gate_ksize,
-                                sources)
+                                sources, ds_bn)
 
-    def forward(self, xs, h0=None, source: str = 'DHF1K'):
+    def forward(self, xs, h0=None, source: str = 'DHF1K',
+                deterministic: bool = True, generator=None):
         b, t, _, hh, ww = xs.shape
         h = h0 if h0 is not None else xs.new_zeros(
             (b, self.hidden_ch, hh, ww))
+        drop_h = None
+        if not deterministic and self.drop_prob[1] > 0:
+            keep = 1.0 - self.drop_prob[1]
+            drop_h = dropout.keep_mask((3, self.hidden_ch), keep, generator
+                                       ).to(xs.device, xs.dtype) / keep
         outs = []
         for i in range(t):
-            h = self.cell(xs[:, i], h, source)
+            h = self.cell(xs[:, i], h, source, drop_h)
             outs.append(h)
         return torch.stack(outs, dim=1), h

@@ -6,8 +6,13 @@ reference's ``omit_stride`` quirk) and ``DomainBN`` (one set of BatchNorm
 statistics per source).  Submodule names follow the JAX parameter tree, so
 ``convert`` maps every leaf by its path.
 
-BatchNorm always runs with its running statistics (the crop pipeline's
-inference mode), whatever the module's ``training`` flag.
+:class:`BatchNorm` keeps flax's semantics, not torch's.  Its explicit
+``bn_train`` flag (never ``nn.Module.training``) selects train mode: the
+batch's statistics normalize and the running statistics move as
+``new = m*old + (1-m)*batch`` with flax's momentum ``m`` and the *biased*
+variance ``E[x^2] - E[x]^2`` clipped at 0 (flax 0.12.3 ``_compute_stats``,
+``use_fast_variance=True``).  Off, it normalizes with the running
+statistics.
 """
 
 from __future__ import annotations
@@ -23,6 +28,14 @@ _BN_EPS = 1e-5
 
 
 def relu6(x):
+    """``min(max(x, 0), 6)``.  Where a gradient is taken, as JAX's
+    ``jnp.minimum(jnp.maximum(x, 0), 6)``, whose gradient is split in half
+    at the ties x == 0 and x == 6 (``torch.clamp`` passes all of it): the
+    ConvGRU's zero first hidden state meets the tie exactly, and training
+    then drifts from JAX's.  Otherwise one clamp."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return torch.minimum(torch.maximum(x, x.new_zeros(())),
+                             x.new_full((), 6.0))
     return torch.clamp(x, 0.0, 6.0)
 
 
@@ -32,30 +45,71 @@ def batch_norm_eval(bn: nn.BatchNorm2d, x):
                         bn.bias, training=False, eps=_BN_EPS)
 
 
+def _ch(v):                                         # (C,) -> (1, C, 1, 1)
+    return v[None, :, None, None]
+
+
+class BatchNorm(nn.BatchNorm2d):
+    """flax ``nn.BatchNorm`` over NCHW (see the module docstring).
+
+    ``momentum`` is flax's (= 1 - torch's): 0.99 for the model's plain
+    BatchNorms and the dynamic sources, 0.9 for SALICON.
+    """
+
+    def __init__(self, ch: int, momentum: float = 0.99):
+        super().__init__(ch, eps=_BN_EPS)
+        self.flax_momentum = momentum
+        self.bn_train = False
+
+    def forward(self, x):
+        if not self.bn_train:
+            return batch_norm_eval(self, x)
+        xf = x.float()
+        mean = xf.mean(dim=(0, 2, 3))
+        var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean,
+                          min=0.0)
+        with torch.no_grad():
+            m = self.flax_momentum
+            self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+            self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        y = (x - _ch(mean)) * _ch(torch.rsqrt(var + _BN_EPS) * self.weight)
+        return (y + _ch(self.bias)).to(x.dtype)
+
+
+def set_bn_train(module: nn.Module, flag: bool) -> None:
+    """Set ``bn_train`` on every :class:`BatchNorm` under ``module``."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm):
+            m.bn_train = flag
+
+
 class DomainBN(nn.Module):
-    """Domain-specific BatchNorm: ``bn_<source>`` per source."""
+    """Domain-specific BatchNorm: ``bn_<source>`` per source; only the
+    active source's statistics are used and, in train mode, updated."""
 
     def __init__(self, ch: int, sources: Sequence[str] = DEFAULT_SOURCES):
         super().__init__()
         self.sources = tuple(sources)
         for src in self.sources:
-            setattr(self, f'bn_{src.lower()}', nn.BatchNorm2d(ch, eps=_BN_EPS))
+            setattr(self, f'bn_{src.lower()}', BatchNorm(
+                ch, 0.9 if src == 'SALICON' else 0.99))
 
     def forward(self, x, source: str = 'DHF1K'):
         if source not in self.sources:
             raise ValueError(f'unknown source {source!r}')
-        return batch_norm_eval(getattr(self, f'bn_{source.lower()}'), x)
+        return getattr(self, f'bn_{source.lower()}')(x)
 
 
 def make_bn(ch: int, ds_bn: bool, sources: Sequence[str]) -> nn.Module:
-    """A ``DomainBN`` or an ``nn.BatchNorm2d`` (names match the JAX tree)."""
-    return DomainBN(ch, sources) if ds_bn else nn.BatchNorm2d(ch, eps=_BN_EPS)
+    """A ``DomainBN`` or a plain :class:`BatchNorm` at flax momentum 0.99
+    (names match the JAX tree)."""
+    return DomainBN(ch, sources) if ds_bn else BatchNorm(ch)
 
 
 def apply_bn(bn: nn.Module, x, source: str):
     if isinstance(bn, DomainBN):
         return bn(x, source)
-    return batch_norm_eval(bn, x)
+    return bn(x)
 
 
 class ConvBN(nn.Module):

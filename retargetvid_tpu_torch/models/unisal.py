@@ -1,4 +1,4 @@
-"""UNISAL saliency model (PyTorch, NCHW inside), inference.
+"""UNISAL saliency model (PyTorch, NCHW inside).
 
 Port of ``retargetvid_tpu/models/unisal.py:UNISAL``: MobileNetV2 backbone
 with 2x/4x skip taps, 16 learned Gaussian prior maps concatenated at the
@@ -6,8 +6,20 @@ coarsest scale, a Post-CNN inverted residual, the ConvGRU (bypassed for
 static inputs, the crop pipeline's mode) with its ``post_rnn`` 1x1 conv, a
 two-stage decoder with skip concatenations, a per-source 1x1 adaptation
 conv, nearest resize to the input size, an edge-padded Gaussian smoothing
-conv applied as its stored rank-r factors (two 1-D convs), a bilinear
-resize to the target size and a spatial log-softmax.
+conv (its stored rank-r factors as two 1-D convs, or with
+``smoothing_rank=None`` the full k x k kernel), a bilinear resize to the
+target size and a spatial log-softmax.
+
+Training knobs (``retargetvid_tpu/models/unisal.py:163-183``):
+``drop_probs`` (the skip connections' dropout, live with
+``deterministic=False``), ``bn_train`` (flax train-mode BatchNorm, see
+``models/layers.py``; the backbone's BatchNorm stays in eval mode, as the
+JAX ``MobileNetV2`` takes no ``bn_train``, so ``cnn_eval`` is stored and
+in effect always true), and the domain switches ``ds_bn``,
+``ds_adaptation``, ``ds_smoothing`` and ``ds_gaussians``: off, the module
+is shared by all sources and its name loses the ``_<source>`` suffix.
+Every dropout mask is drawn through ``models/dropout.py:keep_mask`` from
+the ``generator`` passed to ``forward``.
 
 The public call keeps the JAX layout: (B, T, H, W, 3) in,
 (B, T, th, tw, 1) log-probabilities out; :meth:`UNISAL.forward_with_hidden`
@@ -19,6 +31,7 @@ input to float32).
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 from typing import Optional, Sequence, Tuple
 
@@ -27,6 +40,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from retargetvid_tpu_torch.models import dropout
 from retargetvid_tpu_torch.models.convgru import ConvGRU
 from retargetvid_tpu_torch.models.layers import (
     DEFAULT_SOURCES,
@@ -34,6 +48,7 @@ from retargetvid_tpu_torch.models.layers import (
     InvertedResidual,
     apply_bn,
     make_bn,
+    set_bn_train,
 )
 from retargetvid_tpu_torch.models.mobilenet_v2 import MobileNetV2
 from retargetvid_tpu_torch.ops.resize import resize
@@ -104,27 +119,32 @@ def spatial_log_softmax(x: torch.Tensor) -> torch.Tensor:
 
 
 class _SkipConnection(nn.Module):
-    """expansion (1x1 conv + BN + ReLU6) -> reduction (1x1 conv + BN).
-
-    The reference's dropout sits between them; inference skips it.
-    """
+    """expansion (1x1 conv + BN + ReLU6) -> dropout -> reduction (1x1
+    conv + BN); the dropout mask is one per (frame, channel)."""
 
     def __init__(self, in_ch: int, out_ch: int, expand_ratio: int = 2,
-                 sources: Sequence[str] = DEFAULT_SOURCES):
+                 drop_prob: float = 0.6,
+                 sources: Sequence[str] = DEFAULT_SOURCES,
+                 ds_bn: bool = True):
         super().__init__()
         hidden = round(in_ch * expand_ratio)
+        self.drop_prob = drop_prob
         self.expansion = Conv1x1BN(in_ch, hidden, sources=sources,
-                                   ds_bn=True)
+                                   ds_bn=ds_bn)
         self.reduction_conv = nn.Conv2d(hidden, out_ch, 1, bias=True)
-        self.reduction_bn = make_bn(out_ch, True, sources)
+        self.reduction_bn = make_bn(out_ch, ds_bn, sources)
 
-    def forward(self, x, source):
+    def forward(self, x, source, deterministic: bool = True,
+                generator=None):
         x = self.expansion(x, source)
+        if not deterministic:
+            x = dropout.dropout(x, self.drop_prob, x.shape[:2] + (1, 1),
+                                generator)
         return apply_bn(self.reduction_bn, self.reduction_conv(x), source)
 
 
 class UNISAL(nn.Module):
-    """UNISAL; see the module docstring for the layout.
+    """UNISAL; see the module docstring for the layout and the knobs.
 
     ``with_rnn`` builds the ConvGRU; ``bypass_rnn`` skips it for static
     inputs; ``res_rnn`` adds its ``post_rnn`` output to the features
@@ -137,74 +157,119 @@ class UNISAL(nn.Module):
                  cnn_last_channel: Optional[int] = 1280,
                  bypass_rnn: bool = True, res_rnn: bool = True,
                  n_gaussians: int = 16, smoothing_ksize: int = 41,
-                 smoothing_rank: int = 8,
+                 smoothing_rank: Optional[int] = 8,
+                 drop_probs: Tuple[float, float, float] = (0.0, 0.6, 0.6),
                  sources: Sequence[str] = DEFAULT_SOURCES,
-                 with_rnn: bool = True):
+                 ds_bn: bool = True, ds_adaptation: bool = True,
+                 ds_smoothing: bool = True, ds_gaussians: bool = True,
+                 with_rnn: bool = True, bn_train: bool = False,
+                 cnn_eval: bool = True):
         super().__init__()
-        if not smoothing_rank:
-            raise NotImplementedError(
-                'the port applies the smoothing conv as rank-r factors; '
-                'smoothing_rank=None (full 2-D kernel) is not ported')
         self.sources = tuple(sources)
         self.bypass_rnn = bypass_rnn
         self.res_rnn = res_rnn
         self.with_rnn = with_rnn
         self.n_gaussians = n_gaussians
         self.smoothing_ksize = smoothing_ksize
+        self.smoothing_rank = smoothing_rank
+        self.drop_probs = tuple(drop_probs)
+        self.ds_bn = ds_bn
+        self.ds_adaptation = ds_adaptation
+        self.ds_smoothing = ds_smoothing
+        self.ds_gaussians = ds_gaussians
+        #: Stored for the config; the backbone's BatchNorm is in eval mode
+        #: whatever ``bn_train`` says (the JAX ``MobileNetV2`` takes no
+        #: ``bn_train``), so the flag is in effect always true.
+        self.cnn_eval = cnn_eval
         self.cnn = MobileNetV2(widen_factor=cnn_widen_factor,
                                last_channel=cnn_last_channel)
         self.skip_2x = _SkipConnection(self.cnn.feat_2x_channels, 128, 2,
-                                       sources)
+                                       self.drop_probs[1], sources, ds_bn)
         self.skip_4x = _SkipConnection(self.cnn.feat_4x_channels, 64, 2,
-                                       sources)
+                                       self.drop_probs[2], sources, ds_bn)
         feat_ch = self.cnn.out_channels
         if n_gaussians > 0:
             g0 = torch.from_numpy(manual_gaussian_init())
-            for src in self.sources:
-                setattr(self, f'coarse_gaussians_{src.lower()}',
+            for suf in self._suffixes(ds_gaussians):
+                setattr(self, f'coarse_gaussians{suf}',
                         nn.Parameter(g0.clone()))
             feat_ch += g0.shape[0]
         self.post_cnn = InvertedResidual(feat_ch, rnn_input_channels, 1, 1,
                                          sources=sources, ds_bn=False)
         self.upsampling_2_inv_res = InvertedResidual(
-            rnn_input_channels + 128, 128, 1, 2, sources=sources, ds_bn=True)
+            rnn_input_channels + 128, 128, 1, 2, sources=sources,
+            ds_bn=ds_bn)
         self.post_upsampling_2_inv_res = InvertedResidual(
-            128 + 64, 64, 1, 2, sources=sources, ds_bn=True)
-        kv, kh, _ = factorize_smoothing_kernel(
-            smoothing_kernel_init(smoothing_ksize), smoothing_rank)
-        for src in self.sources:
-            lo = src.lower()
-            setattr(self, f'adaptation_{lo}', nn.Conv2d(64, 1, 1, bias=True))
-            setattr(self, f'smoothing_v_{lo}',
-                    nn.Parameter(torch.from_numpy(kv.copy())))
-            setattr(self, f'smoothing_h_{lo}',
-                    nn.Parameter(torch.from_numpy(kh.copy())))
+            128 + 64, 64, 1, 2, sources=sources, ds_bn=ds_bn)
+        for suf in self._suffixes(ds_adaptation):
+            setattr(self, f'adaptation{suf}', nn.Conv2d(64, 1, 1, bias=True))
+        kernel = smoothing_kernel_init(smoothing_ksize)
+        if smoothing_rank:
+            kv, kh, _ = factorize_smoothing_kernel(kernel, smoothing_rank)
+        for suf in self._suffixes(ds_smoothing):
+            if smoothing_rank:
+                setattr(self, f'smoothing_v{suf}',
+                        nn.Parameter(torch.from_numpy(kv.copy())))
+                setattr(self, f'smoothing_h{suf}',
+                        nn.Parameter(torch.from_numpy(kh.copy())))
+            else:
+                setattr(self, f'smoothing{suf}', nn.Parameter(
+                    torch.from_numpy(kernel.copy())[None, None]))
         # Registered last: ``models/init.py:seeded_init_`` draws conv
         # weights in ``modules()`` order, so every module above keeps the
         # weights it had without the ConvGRU.
         if with_rnn:
             self.rnn = ConvGRU(rnn_input_channels, rnn_hidden_channels,
-                               sources=sources)
+                               sources=sources, ds_bn=ds_bn)
             self.post_rnn = Conv1x1BN(rnn_hidden_channels, rnn_input_channels,
-                                      sources=sources, ds_bn=True)
+                                      sources=sources, ds_bn=ds_bn)
+        self.set_bn_train(bn_train)
+
+    def _suffixes(self, flag: bool):
+        return ([f'_{s.lower()}' for s in self.sources] if flag else [''])
+
+    @staticmethod
+    def _suffix(flag: bool, source: str) -> str:
+        return f'_{source.lower()}' if flag else ''
+
+    def set_bn_train(self, flag: bool) -> None:
+        """Train-mode BatchNorm everywhere but in the backbone."""
+        self.bn_train = bool(flag)
+        for name, child in self.named_children():
+            if name != 'cnn':
+                set_bn_train(child, self.bn_train)
+
+    @contextlib.contextmanager
+    def bn_mode(self, flag: bool):
+        """``bn_train`` set to ``flag`` inside the block, restored after."""
+        saved = self.bn_train
+        self.set_bn_train(flag)
+        try:
+            yield self
+        finally:
+            self.set_bn_train(saved)
 
     def forward(self, x, target_size: Optional[Tuple[int, int]] = None,
                 source: str = 'DHF1K', h0=None,
-                static: Optional[bool] = None):
+                static: Optional[bool] = None,
+                deterministic: bool = True, generator=None):
         """Log-probabilities (B, T, th, tw, 1); see
         :meth:`forward_with_hidden`."""
-        return self.forward_with_hidden(x, target_size, source, h0,
-                                        static)[0]
+        return self.forward_with_hidden(x, target_size, source, h0, static,
+                                        deterministic, generator)[0]
 
     def forward_with_hidden(self, x,
                             target_size: Optional[Tuple[int, int]] = None,
                             source: str = 'DHF1K', h0=None,
-                            static: Optional[bool] = None):
+                            static: Optional[bool] = None,
+                            deterministic: bool = True, generator=None):
         """(log-probabilities (B, T, th, tw, 1), the ConvGRU's final hidden
         state (B, C, h, w) or None where it did not run).
 
         ``static=None`` means ``T == 1`` or a SALICON-only model; ``h0``
-        (B, C, h, w) starts the ConvGRU (zeros by default)."""
+        (B, C, h, w) starts the ConvGRU (zeros by default).  With
+        ``deterministic=False`` the dropout masks are drawn from
+        ``generator``."""
         if source not in self.sources:
             raise ValueError(f'unknown source {source!r}')
         b, t, h, w, c = x.shape
@@ -212,16 +277,16 @@ class UNISAL(nn.Module):
             target_size = (h, w)
         if static is None:
             static = t == 1 or self.sources == ('SALICON',)
-        lo = source.lower()
         dtype = self.cnn.features_0.conv.weight.dtype
         flat = x.reshape(b * t, h, w, c).permute(0, 3, 1, 2).to(dtype)
         feat_1x, feat_2x, feat_4x = self.cnn(flat)
-        feat_2x = self.skip_2x(feat_2x, source)
-        feat_4x = self.skip_4x(feat_4x, source)
+        feat_2x = self.skip_2x(feat_2x, source, deterministic, generator)
+        feat_4x = self.skip_4x(feat_4x, source, deterministic, generator)
 
         if self.n_gaussians > 0:
+            gsuf = self._suffix(self.ds_gaussians, source)
             priors = gaussian_prior_maps(
-                getattr(self, f'coarse_gaussians_{lo}'), feat_1x.shape[2:])
+                getattr(self, f'coarse_gaussians{gsuf}'), feat_1x.shape[2:])
             priors = priors[None].expand(feat_1x.shape[0], -1, -1, -1)
             feat_1x = torch.cat([feat_1x, priors.to(dtype)], dim=1)
         up = self.post_cnn(feat_1x, source)
@@ -231,7 +296,9 @@ class UNISAL(nn.Module):
         hidden = None
         if self.with_rnn and not (static and self.bypass_rnn):
             seq = up.reshape(b, t, *up.shape[1:])
-            rnn_out, hidden = self.rnn(seq, h0=h0, source=source)
+            rnn_out, hidden = self.rnn(seq, h0=h0, source=source,
+                                       deterministic=deterministic,
+                                       generator=generator)
             rnn_out = self.post_rnn(rnn_out.flatten(0, 1), source)
             up = up + rnn_out if self.res_rnn else rnn_out
 
@@ -244,14 +311,19 @@ class UNISAL(nn.Module):
                     channels_last=False).to(dtype)
         up = torch.cat([up, feat_4x], dim=1)
         up = self.post_upsampling_2_inv_res(up, source)
-        up = getattr(self, f'adaptation_{lo}')(up)
+        up = getattr(self, 'adaptation'
+                     + self._suffix(self.ds_adaptation, source))(up)
 
-        # Nearest resize to the input size, edge pad, factored smoothing.
+        # Nearest resize to the input size, edge pad, smoothing.
         up = resize(up, (h, w), 'nearest', channels_last=False).to(dtype)
         pad = self.smoothing_ksize // 2
         up = F.pad(up, (pad, pad, pad, pad), mode='replicate')
-        up = F.conv2d(up, getattr(self, f'smoothing_v_{lo}'))
-        up = F.conv2d(up, getattr(self, f'smoothing_h_{lo}'))
+        ssuf = self._suffix(self.ds_smoothing, source)
+        if self.smoothing_rank:
+            up = F.conv2d(up, getattr(self, f'smoothing_v{ssuf}'))
+            up = F.conv2d(up, getattr(self, f'smoothing_h{ssuf}'))
+        else:
+            up = F.conv2d(up, getattr(self, f'smoothing{ssuf}'))
 
         up = resize(up, target_size, 'linear', channels_last=False)
         up = spatial_log_softmax(up)                      # (BT, 1, th, tw)

@@ -1,1 +1,1 @@
-"""Inference datasets of the port (the training slice adds the rest)."""
+"""Datasets, losses, the trainer and the runtime/size measures of the port."""

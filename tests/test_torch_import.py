@@ -5,6 +5,7 @@ The ``cuda`` case runs on the card without JAX: ``python -m pytest
 tests/test_torch_import.py -m cuda --noconftest``.
 """
 
+import os
 import pkgutil
 import subprocess
 import sys
@@ -34,7 +35,8 @@ def test_port_imports_no_jax():
                  'eval.harness', 'models.torch_import', 'utils.timing',
                  'models.convgru', 'utils.sequence', 'train.data',
                  'io.native_reader', 'models.shot_scoring',
-                 'models.transnet_post'):
+                 'models.transnet_post', 'models.dropout', 'train.losses',
+                 'train.trainer', 'train.measure', 'eval.saliency_metrics'):
         assert f'retargetvid_tpu_torch.{name}' in mods, name
     code = ('import importlib, sys\n'
             f'for m in {mods!r}: importlib.import_module(m)\n'
@@ -48,12 +50,23 @@ def test_port_imports_no_jax():
             '    pass\n'
             'else:\n'
             "    sys.exit('cli predict read frames from a missing file')\n"
+            # ``cli train`` builds the trainer, then finds no dataset;
+            # ``cli score`` builds it, then finds no weights.
+            "for argv in (['train', '--sources', 'DHF1K'],\n"
+            "             ['score', '--train-dir', 'missing_run']):\n"
+            '    try:\n'
+            "        main(argv + ['--device', 'cpu'])\n"
+            '    except FileNotFoundError:\n'
+            '        pass\n'
+            '    else:\n'
+            "        sys.exit(f'cli {argv[0]} ran without data')\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'flax' or m.startswith('flax.') "
             "or m == 'retargetvid_tpu' or m.startswith('retargetvid_tpu.'))\n"
             'print(bad)\n'
             'sys.exit(1 if bad else 0)\n')
-    res = subprocess.run([sys.executable, '-c', code], cwd=REPO,
+    env = {k: v for k, v in os.environ.items() if k != 'DHF1K_DATA_DIR'}
+    res = subprocess.run([sys.executable, '-c', code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
 
@@ -69,6 +82,7 @@ def test_entry_points_need_a_gpu_unless_asked_for_cpu(tmp_path):
     from retargetvid_tpu_torch.pipeline.fused import FusedClipProgram
     from retargetvid_tpu_torch.pipeline.oneshot import OneShotClipProgram
     from retargetvid_tpu_torch.pipeline.saliency import SaliencyPredictor
+    from retargetvid_tpu_torch.train.trainer import Trainer
 
     def unisal():
         return UNISAL(cnn_widen_factor=0.25, cnn_last_channel=None,
@@ -84,6 +98,10 @@ def test_entry_points_need_a_gpu_unless_asked_for_cpu(tmp_path):
         'IngestShotProgram': lambda **kw: IngestShotProgram(
             TransNetV1(f=2, d=16), sal_hw=(36, 64), **kw),
         'SaliencyPredictor': lambda **kw: SaliencyPredictor(unisal(), **kw),
+        'Trainer': lambda **kw: Trainer(model_cfg=dict(
+            cnn_widen_factor=0.25, cnn_last_channel=None,
+            rnn_input_channels=32, rnn_hidden_channels=32,
+            smoothing_ksize=11, smoothing_rank=4), **kw),
     }
     assert resolve_device('cpu') == torch.device('cpu')
     for name, make in entry_points.items():
@@ -142,6 +160,9 @@ def _host_entry_points(tmp_path):
         'cli benchmark': lambda: main(['benchmark', '--videos',
                                        str(tmp_path)]),
         'cli predict': lambda: main(['predict', str(tmp_path)]),
+        'cli train': lambda: main(['train', '--train-dir',
+                                   str(tmp_path / 'run')]),
+        'cli score': lambda: main(['score', '--train-dir', str(tmp_path)]),
     }
 
 
