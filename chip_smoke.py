@@ -6,8 +6,8 @@
 Run from the root of a checkout.  It drives the port's paths -- the
 one-shot clip program, raw frames to crop boxes, the two-dispatch path, the
 streaming ingest with ``smart_vid_crop`` and the ``crop`` command, dynamic
-(ConvGRU) saliency, and UNISAL training -- at full model width and fails
-(exit code != 0) if any phase fails:
+(ConvGRU) saliency, UNISAL training and the sharded runners -- at full
+model width and fails (exit code != 0) if any phase fails:
 
   (a) build: compile every CUDA kernel of the port from ``csrc/`` (one
       ``nvcc`` per source, started together) and report the seconds;
@@ -85,6 +85,21 @@ streaming ingest with ``smart_vid_crop`` and the ``crop`` command, dynamic
       ``run_inference`` on the bench clip (DHF1K) returns (480, 360, 640)
       uint8 maps and finite scores with exactly one kernel launch, and on
       its first 81 frames as SALICON (static) three;
+  (n) sharded serving (one card, so a world of 1): a 1-rank NCCL
+      group, ``make_mesh`` and the three runners of ``parallel.runner``
+      in turns with their single-device programs, warm-up first, a
+      synchronised host clock around each run: ``ShardedOneShot`` on the
+      bench clips (bf16, full-sequence plan, 480 frames padded to the
+      512-frame capacity) against ``OneShotClipProgram.run``,
+      ``ShardedClipRunner`` on the 12-shot clips' host structure against
+      ``FusedClipProgram.run``, ``ShardedSaliency`` (``per_chip`` 16) on
+      the 81 picks of a bench clip against ``SaliencyPredictor.predict``
+      (frames/s); launches 1 per clip and ``ceil(81 / 16)`` per predict;
+      in float32 with TF32 off, picks, shots and boxes within 1 px of the
+      single-device programs and maps within 1 LSB; then two spawned
+      ranks on the card over gloo (NCCL refuses two ranks on one GPU)
+      run two small clips in both orders: the outputs follow the clip and
+      equal the world-1 outputs, one launch per rank per batch;
   (d) exactness, in float32 with TF32 off, under the ICIP and the ISM
       preset: the main-path clip once through the kernel and once through
       the plain postprocess gives identical boxes; each ratio of
@@ -1431,6 +1446,327 @@ def train_card_vs_cpu():
             'state_max_abs_diff_at': worst}
 
 
+def clip_structure(clip, cp, resize, profile):
+    """A raw clip as ``read_video_structure`` gives it: the saliency frames
+    (on the device), the host picks and scene tables of ``profile``'s
+    probabilities."""
+    import torch
+
+    from retargetvid_tpu_torch.ops.scenes import (
+        fix_scene_bounds,
+        predictions_to_scenes,
+        scenes_to_selected,
+    )
+    from retargetvid_tpu_torch.pipeline.ingest import (
+        TRANS_THRESHOLD,
+        sample_frames,
+    )
+    fc = int(clip.shape[0])
+    with torch.inference_mode():
+        tn_frames, sal = resize(clip)
+    probs = profile(tn_frames)
+    selected, true_inds, m2o = sample_frames(fc, probs, cp['skip'], fc)
+    seg = fix_scene_bounds(predictions_to_scenes(probs, TRANS_THRESHOLD), fc)
+    return {'sal_frames': sal, 'selected': selected, 'true_inds': true_inds,
+            'segmentation': seg,
+            'segmentation_sel': scenes_to_selected(seg, m2o), 'fc': fc}
+
+
+def in_turns(runs, clips):
+    """Each of ``runs`` (name -> fn(clip)) on each clip, the order flipped
+    every clip, a synchronised host clock around each; the kernel's launches
+    of each run counted from 0.  Returns per-run ms lists, outputs and
+    launch totals."""
+    import torch
+
+    from retargetvid_tpu_torch.kernels.postprocess import saliency_postprocess
+    names = list(runs)
+    ms = {n: [] for n in names}
+    outs = {n: [] for n in names}
+    launches = dict.fromkeys(names, 0)
+    for i, clip in enumerate(clips):
+        for name in (names if i % 2 == 0 else names[::-1]):
+            torch.cuda.synchronize()
+            saliency_postprocess.launches = 0
+            t0 = time.perf_counter()
+            outs[name].append(runs[name](clip))
+            torch.cuda.synchronize()
+            ms[name].append((time.perf_counter() - t0) * 1e3)
+            launches[name] += saliency_postprocess.launches
+    return ms, outs, launches
+
+
+def max_abs_diff(a, b):
+    return int(np.abs(np.asarray(a, np.int64) - np.asarray(b, np.int64)).max())
+
+
+def sharded_exact(mesh, bench, clip12, sal_frames):
+    """Under float32 with TF32 off, each sharded runner on a world of 1
+    against its single-device program: picks, shots and boxes within 1 px,
+    maps within 1 LSB."""
+    import torch
+
+    from retargetvid_tpu_torch.parallel.runner import (
+        ShardedClipRunner,
+        ShardedOneShot,
+        ShardedSaliency,
+    )
+    from retargetvid_tpu_torch.pipeline.fused import FusedClipProgram
+    from retargetvid_tpu_torch.pipeline.oneshot import OneShotClipProgram
+    from retargetvid_tpu_torch.pipeline.saliency import SaliencyPredictor
+    tn, un = build_models()
+    clip = bench.clips[0]
+    kw = dict(bench.kw, h_orig=bench.h, w_orig=bench.w)
+    with exact_float32():
+        sh = ShardedOneShot(mesh, tn, un, dtype=torch.float32,
+                            tn_fullseq=True).run_batch([clip], bench.cp,
+                                                       **bench.kw)[0]
+        one = OneShotClipProgram(tn, un, dtype=torch.float32,
+                                 tn_fullseq=True).run(clip, bench.cp,
+                                                      **bench.kw)
+        runner = ShardedClipRunner(mesh, un).run_batch([clip12], bench.cp,
+                                                       **kw)[0]
+        fused = FusedClipProgram(un, dtype=torch.float32).run(
+            clip12['sal_frames'], clip12['selected'], clip12['true_inds'],
+            clip12['segmentation'], clip12['segmentation_sel'], bench.cp,
+            fc=clip12['fc'], **kw)
+        maps = ShardedSaliency(mesh, un).predict(sal_frames)
+        ref_maps = SaliencyPredictor(un).predict(sal_frames)
+    rec = {
+        'oneshot': {'fc_sel': [sh['fc_sel'], one['fc_sel']],
+                    'n_segments': [sh['n_segments'], one['n_segments']],
+                    'max_box_px': max_abs_diff(sh['boxes'], one['boxes']),
+                    'probs_max_abs': float(np.abs(sh['probs'][:480]
+                                                  - one['probs'][:480]).max())},
+        'clip_runner': {'max_box_px': max_abs_diff(runner['boxes'],
+                                                 fused['boxes'])},
+    }
+    diff = np.abs(maps.astype(int) - ref_maps.astype(int))
+    rec['saliency'] = {'max_lsb': int(diff.max()),
+                       'n_differing': int((diff > 0).sum()),
+                       'n_px': int(diff.size)}
+    if (sh['fc_sel'], sh['n_segments']) != (one['fc_sel'],
+                                            one['n_segments']):
+        fail('sharded: ShardedOneShot picks or shots differ from '
+             'OneShotClipProgram in float32')
+    if rec['oneshot']['max_box_px'] > 1 or \
+            rec['clip_runner']['max_box_px'] > 1:
+        fail(f'sharded: boxes differ from the single-device programs by '
+             f'more than 1 px: {rec}')
+    if rec['saliency']['max_lsb'] > 1:
+        fail(f'sharded: ShardedSaliency maps differ by more than 1 LSB: '
+             f'{rec["saliency"]}')
+    return rec
+
+
+def two_rank_main(rank, store, out_path, clips, cp, kw):
+    """One of two ranks on the one card over gloo: the small clips through
+    ``ShardedOneShot`` in both orders, float32 with TF32 off; pickles the
+    outputs and the kernel's launches per run to ``out_path``."""
+    import pickle
+
+    import torch
+
+    from retargetvid_tpu_torch.kernels.postprocess import saliency_postprocess
+    from retargetvid_tpu_torch.parallel import distributed
+    from retargetvid_tpu_torch.parallel.mesh import make_mesh
+    from retargetvid_tpu_torch.parallel.runner import ShardedOneShot
+    distributed.initialize(rank, 2, store, 'gloo', timeout_s=120)
+    try:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        mesh = make_mesh(2, device='cuda:0')
+        runner = ShardedOneShot(mesh, *small_models('cuda'),
+                                dtype=torch.float32, tn_fullseq=True)
+        res = {'coords': mesh.coords, 'device': str(mesh.device),
+               'backend': torch.distributed.get_backend()}
+        for name, batch in (('batch', clips), ('swapped', clips[::-1])):
+            saliency_postprocess.launches = 0
+            res[name] = runner.run_batch(batch, cp, **kw)
+            torch.cuda.synchronize()
+            res[f'{name}_launches'] = saliency_postprocess.launches
+    finally:
+        distributed.shutdown()
+    with open(out_path, 'wb') as fp:
+        pickle.dump(res, fp)
+
+
+def two_rank_check(clips, cp, kw, tmp: Path):
+    """Two spawned ranks on the one card (gloo; NCCL refuses two ranks on
+    one GPU) against a world of 1 in this process: the outputs follow the
+    clip, and each rank's equal the world-1 outputs of its clip."""
+    import multiprocessing
+    import pickle
+
+    import torch
+
+    from retargetvid_tpu_torch.parallel.mesh import make_mesh
+    from retargetvid_tpu_torch.parallel.runner import ShardedOneShot
+    ctx = multiprocessing.get_context('spawn')
+    outs = [tmp / f'rank{r}.pkl' for r in range(2)]
+    procs = [ctx.Process(target=two_rank_main, args=(
+        r, f'file://{tmp / "two_rank.store"}', str(outs[r]), clips, cp, kw))
+        for r in range(2)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + 300
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    codes = [p.exitcode for p in procs]
+    if codes != [0, 0] or not all(o.exists() for o in outs):
+        fail(f'sharded: the two gloo ranks exited with {codes}')
+    ranks = [pickle.loads(o.read_bytes()) for o in outs]
+    with exact_float32():
+        single = ShardedOneShot(make_mesh(device='cuda'),
+                                *small_models('cuda'), dtype=torch.float32,
+                                tn_fullseq=True)
+        world1 = [single.run_batch([c], cp, **kw)[0] for c in clips]
+    for r, res in enumerate(ranks):
+        for name, order in (('batch', (0, 1)), ('swapped', (1, 0))):
+            for got, i in zip(res[name], order):
+                want = world1[i]
+                if (got['fc_sel'], got['n_segments']) != (
+                        want['fc_sel'], want['n_segments']) or \
+                        not np.array_equal(got['boxes'], want['boxes']):
+                    fail(f'sharded: rank {r}, {name}: clip {i} differs from '
+                         f'its world-1 outputs')
+            if res[f'{name}_launches'] != 1:
+                fail(f'sharded: rank {r} launched the kernel '
+                     f'{res[f"{name}_launches"]} times for one batch')
+    return {'coords': [res['coords'] for res in ranks],
+            'backend': [res['backend'] for res in ranks],
+            'devices': [res['device'] for res in ranks],
+            'launches_per_rank_per_batch': [
+                [res['batch_launches'], res['swapped_launches']]
+                for res in ranks],
+            'fc': [int(c.shape[0]) for c in clips],
+            'fc_sel': [o['fc_sel'] for o in world1],
+            'n_segments': [o['n_segments'] for o in world1],
+            'outputs_follow_the_clip': True,
+            'equal_to_world_1': True}
+
+
+def phase_sharded(card, bench, program):
+    """The sharded runners on a world of 1 over NCCL at full width, in
+    turns with their single-device programs, the float32 exactness
+    checks, then the two-rank routing check.  Returns the launches of each
+    path."""
+    import math
+    import shutil
+    import tempfile
+
+    import torch
+
+    from retargetvid_tpu_torch.ops.boxes import calc_dest_size
+    from retargetvid_tpu_torch.parallel import distributed
+    from retargetvid_tpu_torch.parallel.mesh import make_mesh
+    from retargetvid_tpu_torch.parallel.runner import (
+        ShardedClipRunner,
+        ShardedOneShot,
+        ShardedSaliency,
+    )
+    from retargetvid_tpu_torch.models.transnet import TransNetPredictor
+    from retargetvid_tpu_torch.pipeline.fused import FusedClipProgram
+    from retargetvid_tpu_torch.pipeline.ingest import _resize_kernel, sal_dims
+    from retargetvid_tpu_torch.pipeline.saliency import SaliencyPredictor
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix='chip_smoke_sharded_'))
+    h, w = bench.h, bench.w
+    resize = _resize_kernel(h, w, *sal_dims(w, h, bench.cp['max_input_d']))
+    profile = TransNetPredictor(cut_detector())
+    kw = dict(bench.kw, h_orig=h, w_orig=w)
+    clips12 = [clip_structure(torch.from_numpy(
+        make_clip(seed=s, shot_len=40)).cuda(), bench.cp, resize, profile)
+        for s in (100, 0, 1, 2, 3)]
+    with torch.inference_mode():
+        sal0 = resize(bench.clips[0])[1]
+    picks = sal0[list(range(0, 480, 6)) + [479]].cpu().numpy()
+
+    distributed.initialize(0, 1, f'file://{tmp / "world1.store"}', 'nccl',
+                           timeout_s=300)
+    try:
+        mesh = make_mesh(device='cuda')
+        backend = torch.distributed.get_backend()
+        oneshot = ShardedOneShot(mesh, bench.tn, bench.un,
+                                 dtype=torch.bfloat16, tn_fullseq=True)
+        fused = FusedClipProgram(bench.un, dtype=torch.bfloat16)
+        runner = ShardedClipRunner(mesh, bench.un, dtype=torch.bfloat16)
+        predictor = SaliencyPredictor(bench.un)
+        sal_runner = ShardedSaliency(mesh, bench.un)
+
+        def run_fused(c):
+            return fused.run(c['sal_frames'], c['selected'], c['true_inds'],
+                             c['segmentation'], c['segmentation_sel'],
+                             bench.cp, fc=c['fc'], **kw)
+
+        runs = {
+            'oneshot': ({'sharded': lambda c: oneshot.run_batch(
+                [c], bench.cp, **bench.kw)[0],
+                'single': lambda c: program.run(c, bench.cp, **bench.kw)},
+                [bench.warm] + bench.clips),
+            'clip_runner': ({'sharded': lambda c: runner.run_batch(
+                [c], bench.cp, **kw)[0], 'single': run_fused}, clips12),
+            'saliency': ({'sharded': sal_runner.predict,
+                          'single': predictor.predict}, [picks] * 5),
+        }
+        rec, launches = {}, {}
+        for path, (fns, data) in runs.items():
+            ms, outs, n = in_turns(fns, data[:1])           # warm-up
+            ms, outs, n = in_turns(fns, data[1:])
+            launches[path] = n['sharded']
+            rec[path] = {f'{k}_per_run_ms': v for k, v in ms.items()}
+            rec[path].update({f'{k}_median_ms': statistics.median(v)
+                              for k, v in ms.items()})
+            rec[path]['sharded_over_single'] = \
+                rec[path]['sharded_median_ms'] / rec[path]['single_median_ms']
+            rec[path]['launches'] = n
+            if path == 'saliency':
+                rec[path]['frames_per_s'] = {
+                    k: len(picks) / statistics.median(v) * 1e3
+                    for k, v in ms.items()}
+                rec[path]['maps_max_lsb_vs_single'] = [
+                    max_abs_diff(a, b) for a, b in zip(outs['sharded'],
+                                                     outs['single'])]
+            else:
+                for out in outs['sharded']:
+                    check_boxes(out['boxes'], bench.dest, h, w)
+                rec[path]['boxes_max_px_vs_single'] = [
+                    max_abs_diff(a['boxes'], b['boxes'])
+                    for a, b in zip(outs['sharded'], outs['single'])]
+        expect_launches('sharded_oneshot', launches['oneshot'], 4)
+        expect_launches('sharded_clip_runner', launches['clip_runner'], 4)
+        want = 4 * math.ceil(len(picks) / (mesh.shape['dp']
+                                           * sal_runner.per_chip))
+        if launches['saliency'] != want:
+            fail(f'sharded_saliency: {launches["saliency"]} launches, '
+                 f'expected {want}')
+        exact = sharded_exact(mesh, bench, clips12[1], picks)
+    finally:
+        distributed.shutdown()
+
+    small = [small_clip(fc) for fc in (52, 60)]
+    dest = calc_dest_size(small[0].shape[2], small[0].shape[1], '1:3')
+    two = two_rank_check(small, bench.cp, dict(
+        fps=30.0, w_final=dest['w_final'], h_final=dest['h_final']), tmp)
+    shutil.rmtree(tmp, ignore_errors=True)
+    emit(card, phase='sharded', world=1, backend=backend,
+         mesh=dict(mesh.shape), clip=[480, h, w], dtype='bfloat16 (TransNet '
+         'and the UNISAL input); ShardedSaliency float32',
+         tn_plan='fullseq', fc_cap=512, saliency_frames=len(picks),
+         saliency_per_chip=sal_runner.per_chip, runs=rec,
+         exact_float32=exact, two_rank_gloo=two, launches=launches,
+         seconds=time.perf_counter() - t_phase)
+    return {'sharded_oneshot': launches['oneshot'],
+            'sharded_clip_runner': launches['clip_runner'],
+            'sharded_saliency': launches['saliency'],
+            'sharded_two_rank_per_rank': sum(
+                two['launches_per_rank_per_batch'][0])}
+
+
 def profile_clip(card, run, out_dir: Path, name: str):
     """``torch.profiler`` over one more clip (``run()``): device busy time
     against the wall time, kernel launches, and the per-operator table
@@ -1900,6 +2236,7 @@ def main():
     (record['launches_by_path']['train_run_inference'],
      record['launches_by_path']['train_run_inference_static']) = \
         phase_train(card, bench, args.profile)
+    record['launches_by_path'].update(phase_sharded(card, bench, program))
     with exact_float32():
         phase_exact(card)
     if 'jax' in sys.modules:

@@ -9,7 +9,9 @@ reference's:
   (``smartVidCrop.py:2621-2846``): every video of a directory at the
   requested aspect ratios, ``NNN_<ar>.txt`` + ``NNN_<ar>_info.txt`` per
   video, inline IoU against the 6 annotators; ``--oneshot`` serves each
-  video with one ``OneShotClipProgram.dispatch_multi`` for all ratios.
+  video with one ``OneShotClipProgram.dispatch_multi`` for all ratios;
+  ``--mesh N [--oneshot]`` splits the clips over N processes, one per GPU
+  (``parallel.runner``; see :func:`cmd_benchmark`).
 - ``crop``: smart-crop one video (or a reference-format ``.pkl``).
 - ``eval``: the standalone ``retargetvid_eval.py`` evaluator.
 - ``predict``: saliency maps of a folder of images or a video file
@@ -102,6 +104,17 @@ def _load_oneshot_models(args):
     """(TransNet, UNISAL) modules for the one-shot path."""
     tn = _load_transnet(args)
     return tn, _load_unisal(args)
+
+
+def _sharded_models(args):
+    """(transnet_fn, UNISAL) of ``benchmark --mesh``: the host-side shot
+    detector of ``read_video_structure`` and the clip runner's model."""
+    from retargetvid_tpu_torch.models.transnet import TransNetPredictor
+
+    transnet_fn = TransNetPredictor(_load_transnet(args),
+                                    fullseq=_tn_fullseq(args),
+                                    device=args.device)
+    return transnet_fn, _load_unisal(args)
 
 
 def _tn_fullseq(args) -> bool:
@@ -277,6 +290,286 @@ def cmd_benchmark_oneshot(args, vid_paths, results_out, annots, crop_params):
         _finish(pending)
 
 
+def _sharded_info(cp, clip, dest, boxes, t_spmd, dp) -> dict:
+    """Results dict of one ``benchmark --mesh`` clip: the one-shot form of
+    :func:`_oneshot_info` over its ``read_video_structure`` dict, the
+    batch's wall time shared evenly by its real clips."""
+    return _oneshot_info(
+        cp, result=f'smart cropped (sharded dp={dp})', h=clip['h_orig'],
+        w=clip['w_orig'], sal_hw=clip['sal_frames'].shape[1:3], dest=dest,
+        boxes=boxes, fc=clip['fc'], fps=clip['fps'],
+        t_read=clip.get('t_ingest', 0.0), t_dev=t_spmd)
+
+
+def _from_rank0(mesh, obj):
+    """Rank 0's ``obj`` on every rank of the mesh."""
+    if mesh.group is None:
+        return obj
+    import torch.distributed as dist
+    box = [obj]
+    dist.broadcast_object_list(box, src=0, group=mesh.group)
+    return box[0]
+
+
+def _ingest_pipeline(paths, read, depth: int):
+    """``read(path)`` for each path in order, two worker threads reading
+    ahead by up to ``depth`` paths while the caller consumes."""
+    from collections import deque
+    from concurrent.futures import ThreadPoolExecutor
+
+    futures: deque = deque()
+    paths = iter(paths)
+    with ThreadPoolExecutor(max_workers=2) as ex:
+
+        def topup():
+            for p in paths:
+                futures.append(ex.submit(read, p))
+                if len(futures) >= depth:
+                    return
+
+        topup()
+        while futures:
+            item = futures.popleft().result()
+            topup()
+            yield item
+
+
+def cmd_benchmark_sharded(args, vid_paths, results_out, annots, crop_params,
+                          mesh):
+    """``--mesh N``: every rank ingests every video
+    (``read_video_structure``: decode, resizes and shot detection, saliency
+    deferred), groups the clips by bucket signature, and runs dp-sized
+    groups through :class:`parallel.runner.ShardedClipRunner`, one clip per
+    rank.  Rank 0 writes the files and prints the inline IoU."""
+    from retargetvid_tpu_torch.eval.annotations import write_boxes_file
+    from retargetvid_tpu_torch.ops.boxes import calc_dest_size
+    from retargetvid_tpu_torch.parallel.runner import (
+        ShardedClipRunner,
+        clip_signature,
+    )
+    from retargetvid_tpu_torch.pipeline.ingest import read_video_structure
+
+    writer = mesh.rank == 0
+    dp = mesh.shape['dp']
+    if writer:
+        print(f' sharded benchmark over mesh {mesh.shape}')
+    transnet_fn, un_model = _sharded_models(args)
+    runner = ShardedClipRunner(mesh, un_model)
+    ars = args.ratios.split(',')
+
+    def ingest_one(vid_path):
+        t0 = time.perf_counter()
+        clip = read_video_structure(vid_path, crop_params, transnet_fn,
+                                    device=args.device)
+        clip['vid_fn'] = Path(vid_path).stem
+        clip['t_ingest'] = time.perf_counter() - t0
+        if writer:
+            print(f" ingested: {clip['vid_fn']} ({clip['fc']} frames, "
+                  f"{clip['t_ingest']:.2f}s)")
+        return clip
+
+    def run_group(batch, n_real):
+        c0 = batch[0]
+        fps, h_orig, w_orig = c0['fps'], c0['h_orig'], c0['w_orig']
+        for ar in ars:
+            cp = dict(crop_params)
+            cp['out_ratio'] = ar
+            dest = calc_dest_size(w_orig, h_orig, ar)
+            t0 = time.perf_counter()
+            results = runner.run_batch(
+                batch, cp, fps=fps, h_orig=h_orig, w_orig=w_orig,
+                w_final=dest['w_final'], h_final=dest['h_final'])
+            t_per_clip = (time.perf_counter() - t0) / max(n_real, 1)
+            if not writer:
+                continue
+            for c, res in list(zip(batch, results))[:n_real]:
+                suffix = f"{c['vid_fn']}_{ar.replace(':', '-')}"
+                boxes = np.asarray(res['boxes'], int)
+                write_boxes_file(results_out / f'{suffix}.txt', boxes)
+                _write_info(results_out / f'{suffix}_info.txt',
+                            _sharded_info(cp, c, dest, boxes, t_per_clip,
+                                          dp))
+                print(f' {suffix}: {len(boxes)} boxes')
+                _eval_inline(annots, c['vid_fn'], ar, boxes)
+
+    # Ingest runs ahead on two threads while groups run; a group goes as
+    # soon as dp clips of one signature are in.
+    pending: dict = {}
+    for clip in _ingest_pipeline(vid_paths, ingest_one, max(2, dp + 2)):
+        key = (clip['fps'], clip['h_orig'], clip['w_orig'],
+               clip_signature(clip))
+        pending.setdefault(key, []).append(clip)
+        if len(pending[key]) == dp:
+            run_group(pending.pop(key), dp)
+    # Tail: partial groups, padded by repeating the last clip.
+    for rest in pending.values():
+        n_real = len(rest)
+        run_group(rest + [rest[-1]] * (dp - n_real), n_real)
+
+
+def cmd_benchmark_oneshot_sharded(args, vid_paths, results_out, annots,
+                                  crop_params, mesh):
+    """``--mesh N --oneshot``: the whole-clip one-shot program with one
+    clip per rank (:class:`parallel.runner.ShardedOneShot`).  Every rank
+    decodes every video (two threads read ahead) and groups the clips by
+    signature; up to two groups are in flight before the oldest is
+    collected.  A clip over ``read_batch`` frames, or one that overruns the
+    program's static pick/shot bounds, takes the streaming
+    ``smart_vid_crop`` path on rank 0, which alone writes files."""
+    from collections import deque
+
+    from retargetvid_tpu_torch.config import sal_dims
+    from retargetvid_tpu_torch.eval.annotations import write_boxes_file
+    from retargetvid_tpu_torch.io.native_reader import open_reader
+    from retargetvid_tpu_torch.io.video import probe_video
+    from retargetvid_tpu_torch.ops.boxes import calc_dest_size
+    from retargetvid_tpu_torch.parallel.runner import (
+        ShardedOneShot,
+        raw_clip_signature,
+    )
+
+    writer = mesh.rank == 0
+    dp = mesh.shape['dp']
+    if writer:
+        print(f' sharded one-shot benchmark over mesh {mesh.shape}')
+    tn_model, un_model = _load_oneshot_models(args)
+    runner = ShardedOneShot(
+        mesh, tn_model, un_model,
+        tn_fullseq=crop_params.get('tpu_transnet_fullseq', False))
+    ars = args.ratios.split(',')
+
+    def read_one(vid_path):
+        t0 = time.perf_counter()
+        meta = probe_video(vid_path)
+        reader = open_reader(vid_path)
+        try:
+            parts = [chunk for chunk, _ in reader.chunks(256)]
+        finally:
+            reader.stop()
+        raw = np.concatenate(parts) if len(parts) > 1 else parts[0]
+        return {'raw': raw, 'fps': meta['fps'], 'vid_fn': Path(vid_path).stem,
+                'path': vid_path, 't_read': time.perf_counter() - t0}
+
+    fb_models: list = []
+
+    def fallback(item, cp):
+        from retargetvid_tpu_torch.pipeline.crop import smart_vid_crop
+        if not fb_models:
+            fb_models.append(_build_models(args))
+        transnet_fn, saliency_fn = fb_models[0]
+        vd, res = smart_vid_crop(item['path'], cp, save_vid=False,
+                                 transnet_fn=transnet_fn,
+                                 saliency_fn=saliency_fn,
+                                 device=args.device)
+        return np.asarray(vd['bbs'], int), res
+
+    def emit(item, ar, boxes, info):
+        suffix = f"{item['vid_fn']}_{ar.replace(':', '-')}"
+        write_boxes_file(results_out / f'{suffix}.txt',
+                         np.asarray(boxes, int))
+        _write_info(results_out / f'{suffix}_info.txt', info)
+        print(f' {suffix}: {len(boxes)} boxes')
+        _eval_inline(annots, item['vid_fn'], ar, boxes)
+
+    inflight: deque = deque()
+    max_groups_inflight = 2
+
+    def collect_group():
+        (batch, n_real, ar, cp, dest, ticket, t0, h, w,
+         fps) = inflight.popleft()
+        results = runner.collect_batch(ticket)
+        t_dev = (time.perf_counter() - t0) / max(n_real, 1)
+        if not writer:
+            return
+        for item, res in list(zip(batch, results))[:n_real]:
+            if res['overrun']:
+                print(f" oneshot overrun, streaming fallback: "
+                      f"{item['vid_fn']}")
+                emit(item, ar, *fallback(item, cp))
+                continue
+            emit(item, ar, res['boxes'], _oneshot_info(
+                cp, result=f'smart cropped (oneshot dp={dp})', h=h, w=w,
+                sal_hw=sal_dims(w, h, cp['max_input_d']), dest=dest,
+                boxes=res['boxes'], fc=item['raw'].shape[0], fps=fps,
+                t_read=item['t_read'], t_dev=t_dev))
+
+    def run_group(batch, n_real):
+        h, w = batch[0]['raw'].shape[1:3]
+        fps = batch[0]['fps']
+        for ar in ars:
+            cp = dict(crop_params)
+            cp['out_ratio'] = ar
+            dest = calc_dest_size(w, h, ar)
+            t0 = time.perf_counter()
+            ticket = runner.dispatch_batch(
+                [it['raw'] for it in batch], cp, fps=fps,
+                w_final=dest['w_final'], h_final=dest['h_final'])
+            inflight.append((batch, n_real, ar, cp, dest, ticket, t0,
+                             h, w, fps))
+            while len(inflight) > max_groups_inflight:
+                collect_group()
+
+    def done_paths():
+        if args.replace_existing:
+            return set()
+        done = set()
+        for p in vid_paths:
+            stem = Path(p).stem
+            if all((results_out / f"{stem}_{ar.replace(':', '-')}{s}"
+                    ).is_file() for ar in ars for s in ('.txt', '_info.txt')):
+                print(f' skipping {stem}')
+                done.add(p)
+        return done
+
+    # Rank 0 decides what is done, so every rank runs the same groups.
+    skip = _from_rank0(mesh, done_paths() if writer else None)
+    todo = [p for p in vid_paths if p not in skip]
+    pending: dict = {}
+    for item in _ingest_pipeline(todo, read_one, max(2, dp + 2)):
+        if item['raw'].shape[0] > crop_params['read_batch']:
+            if writer:
+                print(f" long clip ({item['raw'].shape[0]} frames), "
+                      f"streaming fallback: {item['vid_fn']}")
+                for ar in ars:
+                    cp = dict(crop_params)
+                    cp['out_ratio'] = ar
+                    emit(item, ar, *fallback(item, cp))
+            continue
+        key = raw_clip_signature(item['raw'], item['fps'])
+        pending.setdefault(key, []).append(item)
+        if len(pending[key]) == dp:
+            run_group(pending.pop(key), dp)
+    for rest in pending.values():
+        n_real = len(rest)
+        run_group(rest + [rest[-1]] * (dp - n_real), n_real)
+    while inflight:
+        collect_group()
+
+
+def _run_on_mesh(args, run):
+    """Join the process group named by the ``RTV_*`` variables (when the
+    caller has not), build the dp mesh of ``min(--mesh, world size)`` ranks
+    on this rank's device, and call ``run(mesh)``; the group this function
+    joined is left again on every exit path."""
+    import torch.distributed as dist
+
+    from retargetvid_tpu_torch.parallel.distributed import (
+        initialize_from_env,
+        shutdown,
+    )
+    from retargetvid_tpu_torch.parallel.mesh import make_mesh
+
+    joined = initialize_from_env(args.device)
+    try:
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        mesh = make_mesh(min(args.mesh, world), device=args.device)
+        args.device = mesh.device
+        return run(mesh)
+    finally:
+        if joined:
+            shutdown()
+
+
 def cmd_benchmark(args):
     from retargetvid_tpu_torch.eval.annotations import (
         load_annotations,
@@ -300,6 +593,11 @@ def cmd_benchmark(args):
     results_out = Path(args.out) / args.test_name
     results_out.mkdir(parents=True, exist_ok=True)
 
+    if args.mesh:
+        cmd = (cmd_benchmark_oneshot_sharded if args.oneshot
+               else cmd_benchmark_sharded)
+        return _run_on_mesh(args, lambda mesh: cmd(
+            args, vid_paths, results_out, annots, crop_params, mesh))
     if args.oneshot:
         return cmd_benchmark_oneshot(args, vid_paths, results_out, annots,
                                      crop_params)
@@ -568,6 +866,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help='one-dispatch whole-clip program per video '
                         '(pipeline.oneshot; falls back to the streaming '
                         'path when a clip exceeds its static bounds)')
+    b.add_argument('--mesh', type=int, default=0,
+                   help='shard clips over an N-device dp mesh, one process '
+                        'per GPU started with RTV_NUM_PROCS/RTV_PROC_ID/'
+                        'RTV_COORD (0 = sequential single-device loop)')
     b.add_argument('--tn-plan', choices=('windowed', 'fullseq'),
                    default='fullseq',
                    help="TransNet shot-detection plan.  'fullseq' (the "

@@ -40,7 +40,11 @@ import torch
 
 from retargetvid_tpu_torch.config import TRANS_THRESHOLD, sal_dims
 from retargetvid_tpu_torch.device import resolve_device
-from retargetvid_tpu_torch.models.transnet import INPUT_HEIGHT, INPUT_WIDTH
+from retargetvid_tpu_torch.models.transnet import (
+    INPUT_HEIGHT,
+    INPUT_WIDTH,
+    IngestShotProgram,
+)
 from retargetvid_tpu_torch.ops.resize import resize, round_half_up
 from retargetvid_tpu_torch.ops.scenes import (
     fix_scene_bounds,
@@ -51,7 +55,8 @@ from retargetvid_tpu_torch.utils.timing import sc_register_time
 
 __all__ = ["TRANSNET_H", "TRANSNET_W", "TRANS_THRESHOLD", "sal_dims",
            "sample_frames", "read_and_segment_video", "segment_chunks",
-           "ingest_pickle", "load_vid_data", "save_vid_data"]
+           "ingest_pickle", "load_vid_data", "save_vid_data",
+           "read_video_structure"]
 
 TRANSNET_H = INPUT_HEIGHT
 TRANSNET_W = INPUT_WIDTH
@@ -356,3 +361,81 @@ def save_vid_data(path, vd: dict) -> None:
                    else np.asarray(smaps))
     with open(path, 'wb') as fp:
         pickle.dump(vd, fp)
+
+
+def read_video_structure(video_path, crop_params: dict,
+                         transnet_fn: Callable, device=None) -> dict:
+    """Decode, resize, shot-detect and sample a video, deferring saliency.
+
+    Returns the clip dict that ``parallel.runner.ShardedClipRunner`` and
+    ``group_clips`` take: ``sal_frames`` (the whole saliency-resolution
+    volume, numpy uint8), ``selected``, ``true_inds``, ``segmentation``,
+    ``segmentation_sel``, ``fc``, ``fps``, ``h_orig``, ``w_orig``.  Frames
+    reach ``device`` (``None``: the GPU) in chunks of 256 and are resized
+    there.  A clip of at most ``read_batch`` frames is shot-detected whole
+    (``transnet_fn`` on the 27x48 frames, or an ``IngestShotProgram`` on the
+    raw ones); a longer clip in the streaming ingest's read batches, each
+    behind the previous batch's ``int(fps - 5)``-frame tail (zeros first)
+    with a 75-frame zero tail, an ``IngestShotProgram`` through its
+    ``TransNetPredictor``.  Sampling and scenes run on the host.
+    """
+    from retargetvid_tpu_torch.io.native_reader import open_reader
+    from retargetvid_tpu_torch.io.video import probe_video
+
+    dev = resolve_device(device)
+    info = probe_video(video_path)
+    fr, w, h = info['fps'], info['width'], info['height']
+    skip = crop_params['skip']
+    sal_h, sal_w = sal_dims(w, h, crop_params['max_input_d'])
+    kernel = _resize_kernel(h, w, sal_h, sal_w)
+
+    reader = open_reader(video_path)
+    try:
+        parts = [torch.as_tensor(chunk).to(dev)
+                 for chunk, _ in reader.chunks(DEVICE_CHUNK)]
+    finally:
+        reader.stop()
+    raw = torch.cat(parts) if len(parts) > 1 else parts[0]
+    fc = int(raw.shape[0])
+
+    read_batch = crop_params['read_batch']
+    with torch.inference_mode():
+        if fc > read_batch:
+            batch_overlap = int(fr - 5)
+            tn_all, sal_frames = kernel(raw)
+            probs_fn = (transnet_fn.predictor
+                        if isinstance(transnet_fn, IngestShotProgram)
+                        else transnet_fn)
+            tail = tn_all.new_zeros((max(batch_overlap, 0),)
+                                    + tuple(tn_all.shape[1:]))
+            zero_tail = tn_all.new_zeros((ZERO_TAIL,)
+                                         + tuple(tn_all.shape[1:]))
+            probs_parts = []
+            for start in range(0, fc, read_batch):
+                batch = tn_all[start:start + read_batch]
+                context = torch.cat(([tail] if batch_overlap > 0 else [])
+                                    + [batch, zero_tail])
+                p = np.asarray(probs_fn(context))
+                probs_parts.append(
+                    p[batch_overlap:batch_overlap + len(batch)])
+                if batch_overlap > 0:
+                    tail = batch[-batch_overlap:]
+            probs = np.concatenate(probs_parts)
+        elif isinstance(transnet_fn, IngestShotProgram):
+            sal_frames, probs = transnet_fn(raw)
+        else:
+            tn, sal_frames = kernel(raw)
+            probs = np.asarray(transnet_fn(tn))
+    selected, true_inds, map2orig = sample_frames(fc, probs, skip, fc)
+    segmentation = fix_scene_bounds(
+        predictions_to_scenes(probs, threshold=TRANS_THRESHOLD), fc)
+    return {
+        'sal_frames': sal_frames.cpu().numpy(),
+        'selected': selected,
+        'true_inds': true_inds,
+        'segmentation': segmentation,
+        'segmentation_sel': scenes_to_selected(segmentation, map2orig),
+        'fc': fc,
+        'fps': fr,
+        'h_orig': h, 'w_orig': w,
+    }

@@ -165,8 +165,16 @@ def make_oneshot_body(un_model, tn_model, *, source, dtype, t_border,
                       window: int = 100, stride: int = 50,
                       keep: tuple = (25, 75), tn_fullseq: bool = False,
                       stage=None):
-    """Whole-clip body ``(raw, w_final, h_final) -> dict``; the targets
-    are ints for one ratio or equal-length sequences for R ratios."""
+    """Whole-clip body ``(raw, w_final, h_final, n=None) -> dict``; the
+    targets are ints for one ratio or equal-length sequences for R ratios.
+
+    ``fc`` is the frame capacity; ``n`` (default ``fc``) the clip's live
+    frame count, with ``raw`` padded by zero frames up to ``fc``: shot
+    detection reads the first ``n`` frames, the probabilities past ``n``
+    are 0 and sampling and scenes stop at ``n``.  Shared by
+    :class:`OneShotClipProgram` (``n == fc``) and
+    ``parallel.runner.ShardedOneShot``, which pads the clips of a batch to
+    one capacity."""
     stage = stage or (lambda name: contextlib.nullcontext())
     sal_h, sal_w = sal_hw
     clip_fn = make_clip_fn(
@@ -175,25 +183,31 @@ def make_oneshot_body(un_model, tn_model, *, source, dtype, t_border,
         h_orig=h_orig, w_orig=w_orig, stage=stage)
     resize = _resize_kernel(h_orig, w_orig, sal_h, sal_w)
 
-    def body(raw, w_final, h_final):
+    def body(raw, w_final, h_final, n=None):
         dev = raw.device
+        n = fc if n is None else int(n)
         with stage('transnet'):
             tn, sal = resize(raw)
             if tn_fullseq:
-                probs = fullseq_forward(tn_model, tn, fc, fc, keep=keep)
+                probs = fullseq_forward(tn_model, tn, n, fc, keep=keep)
             else:
-                probs = window_forward(tn_model, tn, fc, fc, window=window,
+                probs = window_forward(tn_model, tn, n, fc, window=window,
                                        stride=stride, keep=keep)
+            if n < fc:
+                probs = torch.where(torch.arange(fc, device=dev) < n,
+                                    probs, torch.zeros_like(probs))
             sel_mask_f, sel_idx, fc_sel, ti = sample_frames_device(
-                probs, skip, fc, t_sel_pad)
+                probs, skip, fc, t_sel_pad, n=n)
             ss, se, sss, sse, n_seg = scene_bounds_device(
-                probs, sel_mask_f, fc, s_pad)
-        # Clamp against a clip with more picks than t_sel_pad; collect()
-        # reports the raw count and raises.
+                probs, sel_mask_f, fc, s_pad, n=n)
+        # Clamp against a clip with more picks than t_sel_pad, as XLA
+        # clamps its gathers: the body completes, and the caller sees the
+        # raw counts (collect() raises, ShardedOneShot flags an overrun).
         fc_sel_c = torch.clamp(fc_sel, max=t_sel_pad)
         sel_live = torch.arange(t_sel_pad, device=dev) < fc_sel_c
-        out = clip_fn(sal, sel_idx, sel_live, fc_sel_c, ti, ss, se, sss, sse,
-                      n_seg, fc, w_final, h_final)
+        sss_c, sse_c = (torch.clamp(v, max=t_sel_pad - 1) for v in (sss, sse))
+        out = clip_fn(sal, sel_idx, sel_live, fc_sel_c, ti, ss, se, sss_c,
+                      sse_c, n_seg, n, w_final, h_final)
         out['probs'] = probs
         out['fc_sel'] = fc_sel
         out['n_segments'] = n_seg

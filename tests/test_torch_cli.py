@@ -94,7 +94,7 @@ def test_parser_defaults(argv, monkeypatch):
     ref, got = _parsed(argv)
     for args in (ref, got):
         args.pop('fn')
-    assert ref.pop('mesh', 0) == 0
+    assert ref.pop('mesh', 0) == got.pop('mesh', 0) == 0
     if argv[0] != 'eval':
         assert got.pop('device') == 'cuda'
     assert got == ref

@@ -28,7 +28,7 @@ def _port_modules():
     return names
 
 
-def test_port_imports_no_jax():
+def test_port_imports_no_jax(tmp_path):
     mods = _port_modules()
     assert len(mods) >= 20, mods
     for name in ('cli', 'pipeline.crop', 'pipeline.render', 'io.video',
@@ -36,7 +36,9 @@ def test_port_imports_no_jax():
                  'models.convgru', 'utils.sequence', 'train.data',
                  'io.native_reader', 'models.shot_scoring',
                  'models.transnet_post', 'models.dropout', 'train.losses',
-                 'train.trainer', 'train.measure', 'eval.saliency_metrics'):
+                 'train.trainer', 'train.measure', 'eval.saliency_metrics',
+                 'parallel', 'parallel.mesh', 'parallel.distributed',
+                 'parallel.runner'):
         assert f'retargetvid_tpu_torch.{name}' in mods, name
     code = ('import importlib, sys\n'
             f'for m in {mods!r}: importlib.import_module(m)\n'
@@ -60,6 +62,12 @@ def test_port_imports_no_jax():
             '        pass\n'
             '    else:\n'
             "        sys.exit(f'cli {argv[0]} ran without data')\n"
+            # ``cli benchmark --mesh 1 [--oneshot]`` on an empty folder
+            # builds the mesh, the models and the runner.
+            "for extra in ([], ['--oneshot']):\n"
+            "    main(['benchmark', '--videos', 'missing_dir', '--out',\n"
+            f"          {str(tmp_path)!r}, '--mesh', '1', '--device',\n"
+            "          'cpu'] + extra)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'flax' or m.startswith('flax.') "
             "or m == 'retargetvid_tpu' or m.startswith('retargetvid_tpu.'))\n"
@@ -79,6 +87,12 @@ def test_entry_points_need_a_gpu_unless_asked_for_cpu(tmp_path):
         TransNetV1,
     )
     from retargetvid_tpu_torch.models.unisal import UNISAL
+    from retargetvid_tpu_torch.parallel.mesh import make_mesh
+    from retargetvid_tpu_torch.parallel.runner import (
+        ShardedClipRunner,
+        ShardedOneShot,
+        ShardedSaliency,
+    )
     from retargetvid_tpu_torch.pipeline.fused import FusedClipProgram
     from retargetvid_tpu_torch.pipeline.oneshot import OneShotClipProgram
     from retargetvid_tpu_torch.pipeline.saliency import SaliencyPredictor
@@ -98,6 +112,13 @@ def test_entry_points_need_a_gpu_unless_asked_for_cpu(tmp_path):
         'IngestShotProgram': lambda **kw: IngestShotProgram(
             TransNetV1(f=2, d=16), sal_hw=(36, 64), **kw),
         'SaliencyPredictor': lambda **kw: SaliencyPredictor(unisal(), **kw),
+        'make_mesh': lambda **kw: make_mesh(**kw),
+        'ShardedOneShot': lambda **kw: ShardedOneShot(
+            make_mesh(**kw), TransNetV1(f=2, d=16), unisal()),
+        'ShardedClipRunner': lambda **kw: ShardedClipRunner(
+            make_mesh(**kw), unisal()),
+        'ShardedSaliency': lambda **kw: ShardedSaliency(
+            make_mesh(**kw), unisal()),
         'Trainer': lambda **kw: Trainer(model_cfg=dict(
             cnn_widen_factor=0.25, cnn_last_channel=None,
             rnn_input_channels=32, rnn_hidden_channels=32,
@@ -133,6 +154,7 @@ def _host_entry_points(tmp_path):
     from retargetvid_tpu_torch.pipeline.geometry import run_geometry
     from retargetvid_tpu_torch.pipeline.ingest import (
         ingest_pickle,
+        read_video_structure,
         segment_chunks,
     )
 
@@ -157,8 +179,12 @@ def _host_entry_points(tmp_path):
             np.zeros((2, 8, 8), np.uint8), [0, 3], [[0, 3]], [[0, 1]], cp,
             fps=30.0, h_orig=36, w_orig=64, w_final=12, h_final=36, fc=4),
         'cli crop': lambda: main(['crop', str(pkl)]),
+        'read_video_structure': lambda: read_video_structure(
+            tmp_path / 'missing.mp4', cp, unused),
         'cli benchmark': lambda: main(['benchmark', '--videos',
                                        str(tmp_path)]),
+        'cli benchmark --mesh': lambda: main(['benchmark', '--videos',
+                                              str(tmp_path), '--mesh', '2']),
         'cli predict': lambda: main(['predict', str(tmp_path)]),
         'cli train': lambda: main(['train', '--train-dir',
                                    str(tmp_path / 'run')]),
