@@ -6,8 +6,9 @@
 Run from the root of a checkout.  It drives the port's paths -- the
 one-shot clip program, raw frames to crop boxes, the two-dispatch path, the
 streaming ingest with ``smart_vid_crop`` and the ``crop`` command, dynamic
-(ConvGRU) saliency, UNISAL training and the sharded runners -- at full
-model width and fails (exit code != 0) if any phase fails:
+(ConvGRU) saliency, UNISAL training, the sharded runners and mesh
+training -- at full model width and fails (exit code != 0) if any phase
+fails:
 
   (a) build: compile every CUDA kernel of the port from ``csrc/`` (one
       ``nvcc`` per source, started together) and report the seconds;
@@ -100,6 +101,20 @@ model width and fails (exit code != 0) if any phase fails:
       ranks on the card over gloo (NCCL refuses two ranks on one GPU)
       run two small clips in both orders: the outputs follow the clip and
       equal the world-1 outputs, one launch per rank per batch;
+  (o) mesh training (``train_mesh``): the full-width DHF1K step (4, 12,
+      224, 384), backbone trained, statistics drawn from a seed, from one
+      seeded tree: on a 1-rank NCCL mesh against the plain ``Trainer``
+      step in float32 with TF32 off (the loss summands within 1e-5
+      relative, every parameter and statistic within 1e-5 + 1e-4
+      relative), then in turns with it (TF32 as the card defaults; median
+      CUDA-event ms of 5 steps each after one warm-up), and
+      ``run_inference`` of the mesh trainer on the bench clip (one
+      launch); two spawned gloo ranks on the card at the meshes (2,1,1),
+      (1,2,1) and (1,1,2) against the same plain step, each rank's
+      first and second step ms and peak allocated bytes above what it
+      held before, beside the plain step's (TF32 off);
+      ``dryrun.dryrun_multichip(4)`` on four CPU ranks (the
+      (1,2,2) train step and the swap check);
   (d) exactness, in float32 with TF32 off, under the ICIP and the ISM
       preset: the main-path clip once through the kernel and once through
       the plain postprocess gives identical boxes; each ratio of
@@ -1767,6 +1782,248 @@ def phase_sharded(card, bench, program):
                 two['launches_per_rank_per_batch'][0])}
 
 
+#: The meshes of two ranks sharing the card in the ``train_mesh`` phase.
+TRAIN_MESHES = ((2, 1, 1), (1, 2, 1), (1, 1, 2))
+#: The mesh step against the single-device step, TF32 off: the loss, then
+#: every parameter and statistic (absolute + relative), as the CPU tests.
+MESH_LOSS_RTOL, MESH_ATOL, MESH_RTOL = 1e-5, 1e-5, 1e-4
+
+
+def mesh_step(tr, batch, seed=7):
+    """One DHF1K step (backbone trained) of ``tr`` on the global ``batch``,
+    through its blocks on a mesh; the step's metrics, its CUDA-event ms,
+    ``torch.cuda.max_memory_allocated`` over the step and the bytes
+    allocated before it."""
+    import torch
+    tr.generator.manual_seed(seed)
+    x, sal, fix, layout = tr._shard_arrays(*batch)
+    step = tr.step_fn('DHF1K', False, True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    tr.state, m = step(tr.state, x, sal, fix, layout)
+    end.record()
+    end.synchronize()
+    return ({k: float(v) for k, v in m.items()}, start.elapsed_time(end),
+            torch.cuda.max_memory_allocated(), base)
+
+
+def trees_apart(got, ref, label):
+    """Fails unless the loss summands and every leaf of the full trees
+    agree within the ``MESH_*`` bounds; returns the largest differences."""
+    def flat(tree, prefix=()):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from flat(v, prefix + (k,))
+            else:
+                yield '/'.join(prefix + (k,)), np.asarray(v)
+
+    (gm, gt), (rm, rt) = got, ref
+    loss_err = max(abs(gm[k] - rm[k]) / max(abs(rm[k]), 1e-12) for k in rm)
+    gt, rt = dict(flat(gt)), dict(flat(rt))
+    if set(gt) != set(rt):
+        fail(f'train_mesh {label}: the trees differ in their leaves')
+    worst, bad = (0.0, None), []
+    for k, ref_v in rt.items():
+        d = np.abs(gt[k] - ref_v)
+        if float(d.max()) > worst[0]:
+            worst = (float(d.max()), k)
+        if (d > MESH_ATOL + MESH_RTOL * np.abs(ref_v)).any():
+            bad.append(k)
+    if loss_err > MESH_LOSS_RTOL or bad:
+        fail(f'train_mesh {label}: loss {gm} against {rm}, leaves out of '
+             f'bounds {bad[:6]}')
+    return {'metrics_max_rel_diff': loss_err, 'max_abs_diff': worst[0],
+            'max_abs_diff_at': worst[1]}
+
+
+def mesh_rank_main(rank, store, out_path, tree_path):
+    """One of two ranks on the one card over gloo: for each of
+    ``TRAIN_MESHES`` a mesh trainer from the pickled full tree, one step
+    of the DHF1K batch (TF32 off), the gathered tree (rank 0 keeps it),
+    the step's ms and peak memory, then a second step's ms; pickled to
+    ``out_path``."""
+    import pickle
+
+    import torch
+
+    from retargetvid_tpu_torch.parallel import distributed
+    from retargetvid_tpu_torch.parallel.mesh import make_mesh
+    from retargetvid_tpu_torch.train.trainer import Trainer
+    distributed.initialize(rank, 2, store, 'gloo', timeout_s=300)
+    res = {}
+    try:
+        with open(tree_path, 'rb') as fp:
+            tree = pickle.load(fp)
+        batch = train_batches('DHF1K', 1, 20)[0]
+        with exact_float32():
+            for sizes in TRAIN_MESHES:
+                mesh = make_mesh(2, axis_sizes=sizes, device='cuda:0')
+                tr = Trainer(device='cuda:0')
+                tr.init_state(variables=tree, mesh=mesh)
+                metrics, ms, peak, base = mesh_step(tr, batch)
+                full = tr._flax_tree()
+                warm_ms = mesh_step(tr, batch, seed=8)[1]
+                res[sizes] = {'coords': mesh.coords, 'metrics': metrics,
+                              'ms': ms, 'warm_ms': warm_ms,
+                              'max_memory_allocated': peak,
+                              'peak_bytes': peak - base,
+                              'tp_split_weights': len(tr._tp_dims),
+                              'tree': full if rank == 0 else None}
+                del tr, full
+                torch.cuda.empty_cache()
+    finally:
+        distributed.shutdown()
+    with open(out_path, 'wb') as fp:
+        pickle.dump(res, fp)
+
+
+def spawn_two(target, tmp: Path, *args, timeout=600):
+    """``target(rank, store, out_path, *args)`` on two spawned ranks;
+    their pickled results (fails on a rank that exits with an error or
+    outlives ``timeout``)."""
+    import multiprocessing
+    import pickle
+    ctx = multiprocessing.get_context('spawn')
+    outs = [tmp / f'{target.__name__}{r}.pkl' for r in range(2)]
+    procs = [ctx.Process(target=target, args=(
+        r, f'file://{tmp / (target.__name__ + ".store")}', str(outs[r]),
+        *args)) for r in range(2)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    codes = [p.exitcode for p in procs]
+    if codes != [0, 0] or not all(o.exists() for o in outs):
+        fail(f'{target.__name__}: the two ranks exited with {codes}')
+    return [pickle.loads(o.read_bytes()) for o in outs]
+
+
+def phase_train_mesh(card, bench):
+    """Mesh training at full width (see the module docstring, (o));
+    returns the kernel's launches of ``run_inference`` on the 1-rank mesh
+    trainer."""
+    import pickle
+    import shutil
+    import tempfile
+
+    import torch
+
+    from retargetvid_tpu_torch.dryrun import dryrun_multichip
+    from retargetvid_tpu_torch.kernels.postprocess import saliency_postprocess
+    from retargetvid_tpu_torch.parallel import distributed
+    from retargetvid_tpu_torch.parallel.mesh import make_mesh
+    from retargetvid_tpu_torch.train.trainer import Trainer
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix='chip_smoke_train_mesh_'))
+    batch = train_batches('DHF1K', 1, 20)[0]
+    seeded = Trainer()
+    seeded.init_state(rng_seed=0)
+    draw_stats(seeded.model, 3)
+    tree = seeded._flax_tree()
+    del seeded
+
+    def fresh(mesh=None):
+        tr = Trainer()
+        tr.init_state(variables=tree, mesh=mesh)
+        return tr
+
+    with exact_float32():
+        plain = fresh()
+        single_m, single_ms, single_max, base = mesh_step(plain, batch)
+        single_peak = single_max - base
+        single = (single_m, plain._flax_tree())
+        single_warm_ms = mesh_step(plain, batch, seed=8)[1]
+        del plain
+    distributed.initialize(0, 1, f'file://{tmp / "world1.store"}', 'nccl',
+                           timeout_s=300)
+    try:
+        mesh = make_mesh(device='cuda')
+        backend = torch.distributed.get_backend()
+        with exact_float32():
+            tr = fresh(mesh)
+            m, _, max1, base1 = mesh_step(tr, batch)
+            world1 = trees_apart((m, tr._flax_tree()), single,
+                                 '1-rank NCCL mesh')
+            del tr
+        # In turns with the plain step (TF32 as the card defaults).
+        trainers = {'mesh': fresh(mesh), 'plain': fresh()}
+        ms = {k: [] for k in trainers}
+        for i in range(6):
+            for k, tr in trainers.items():
+                ms[k].append(mesh_step(tr, batch, seed=i)[1])
+        ms = {k: v[1:] for k, v in ms.items()}            # warm-up out
+        clip = bench.clips[0]
+        saliency_postprocess.launches = 0
+        maps, _ = trainers['mesh'].run_inference(clip, source='DHF1K')
+        torch.cuda.synchronize()
+        launches = saliency_postprocess.launches
+        if launches != 1 or maps.shape != tuple(clip.shape[:3]):
+            fail(f'train_mesh run_inference: {launches} launches, maps '
+                 f'{maps.shape}')
+        del trainers
+    finally:
+        distributed.shutdown()
+    torch.cuda.empty_cache()
+
+    with open(tmp / 'tree.pkl', 'wb') as fp:
+        pickle.dump(tree, fp)
+    ranks = spawn_two(mesh_rank_main, tmp, str(tmp / 'tree.pkl'))
+    two = {}
+    for sizes in TRAIN_MESHES:
+        r0, r1 = ranks[0][sizes], ranks[1][sizes]
+        label = 'x'.join(map(str, sizes))
+        if r0['metrics'] != r1['metrics']:
+            fail(f'train_mesh {label}: the ranks report different metrics')
+        two[label] = {
+            'coords': [r0['coords'], r1['coords']],
+            'tp_split_weights': r0['tp_split_weights'],
+            'first_step_ms': [r0['ms'], r1['ms']],
+            'second_step_ms': [r0['warm_ms'], r1['warm_ms']],
+            'max_memory_allocated_per_rank': [r0['max_memory_allocated'],
+                                              r1['max_memory_allocated']],
+            'peak_bytes_per_rank': [r0['peak_bytes'], r1['peak_bytes']],
+            'peak_over_single': [r['peak_bytes'] / single_peak
+                                 for r in (r0, r1)],
+            **trees_apart((r0['metrics'], r0['tree']), single,
+                          f'two gloo ranks {label}')}
+    del ranks
+    dry = dryrun_multichip(4, timeout_s=300.0)
+    shutil.rmtree(tmp, ignore_errors=True)
+    emit(card, phase='train_mesh', model='UNISAL full width, bn_train, '
+         'dropout live, statistics drawn from a seed, float32',
+         batch=list(TRAIN_SHAPES['DHF1K']), source='DHF1K',
+         backbone='trained',
+         world1={'backend': backend, 'mesh': dict(mesh.shape),
+                 'step_ms_in_turns': ms,
+                 'median_ms': {k: statistics.median(v)
+                               for k, v in ms.items()},
+                 'mesh_over_plain': statistics.median(ms['mesh'])
+                 / statistics.median(ms['plain']),
+                 'exact_float32_vs_plain': world1,
+                 'peak_bytes': {'mesh': max1 - base1,
+                                'plain': single_peak}},
+         single_step_float32={'first_step_ms': single_ms,
+                              'second_step_ms': single_warm_ms,
+                              'max_memory_allocated': single_max,
+                              'peak_bytes': single_peak,
+                              'metrics': single_m},
+         two_rank_gloo=two,
+         tolerance={'metrics_rel': MESH_LOSS_RTOL, 'atol': MESH_ATOL,
+                    'rtol': MESH_RTOL},
+         dryrun_multichip_4=dry, run_inference_launches=launches,
+         seconds=time.perf_counter() - t_phase)
+    return launches
+
+
 def profile_clip(card, run, out_dir: Path, name: str):
     """``torch.profiler`` over one more clip (``run()``): device busy time
     against the wall time, kernel launches, and the per-operator table
@@ -2237,6 +2494,8 @@ def main():
      record['launches_by_path']['train_run_inference_static']) = \
         phase_train(card, bench, args.profile)
     record['launches_by_path'].update(phase_sharded(card, bench, program))
+    record['launches_by_path']['train_mesh_run_inference'] = \
+        phase_train_mesh(card, bench)
     with exact_float32():
         phase_exact(card)
     if 'jax' in sys.modules:

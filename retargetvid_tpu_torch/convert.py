@@ -17,6 +17,12 @@ The inputs are the JAX trees as nested dicts of numpy arrays
 (``jax.tree_util.tree_map(np.asarray, variables)``); nothing here imports
 JAX.  :func:`state_dict_to_flax` goes the other way, so the port writes
 weights and checkpoints in the JAX package's pickle format.
+
+A model trained on a mesh with tp holds only its rank's output channels of
+the split weights; its JAX tree is still the full one: the trainer
+gathers the split leaves and passes them as ``values`` to
+:func:`state_dict_to_flax`, and :func:`load_flax_variables` cuts each split
+leaf of a full tree to the rank's channels (``shards``).
 """
 
 from __future__ import annotations
@@ -28,7 +34,8 @@ import torch
 from torch import nn
 
 __all__ = ["flax_to_state_dict", "load_flax_variables",
-           "state_dict_to_flax", "flax_param_tree", "flax_name"]
+           "state_dict_to_flax", "flax_param_tree", "flax_name",
+           "shard_entries"]
 
 _STAT_NAMES = {'mean': 'running_mean', 'var': 'running_var'}
 #: Inverse axis orders of the kernel layouts above (OI... -> ...IO).
@@ -76,13 +83,16 @@ def flax_to_state_dict(variables: dict,
 
 
 def load_flax_variables(module: nn.Module, variables: dict,
-                        skip: Iterable[str] = ()) -> nn.Module:
+                        skip: Iterable[str] = (),
+                        shards: Optional[dict] = None) -> nn.Module:
     """Fill every parameter and BatchNorm statistic of ``module`` from the
     JAX trees; raises on a missing, extra or misshapen entry.  Top-level
     subtrees named in ``skip`` are left out on both sides: the module's
-    own entries under them keep their values."""
+    own entries under them keep their values.  ``shards``: port name ->
+    ``(dim, index, parts)``, the entries the module holds a slice of (its
+    ``index``-th of ``parts`` equal slices along ``dim``)."""
     skip = set(skip)
-    converted = flax_to_state_dict(variables, skip)
+    converted = shard_entries(flax_to_state_dict(variables, skip), shards)
     state = module.state_dict()
     kept = [k for k in state if k.split('.', 1)[0] not in skip]
     extra = sorted(set(converted) - set(kept))
@@ -99,6 +109,17 @@ def load_flax_variables(module: nn.Module, variables: dict,
         state[k] = v.to(state[k].dtype)
     module.load_state_dict(state, strict=True)
     return module
+
+
+def shard_entries(entries: dict, shards: Optional[dict]) -> dict:
+    """``entries`` (name -> tensor) with each entry named in ``shards``
+    cut to its slice (see :func:`load_flax_variables`)."""
+    out = dict(entries)
+    for name, (dim, index, parts) in (shards or {}).items():
+        if name in out:
+            n = out[name].shape[dim] // parts
+            out[name] = out[name].narrow(dim, index * n, n).clone()
+    return out
 
 
 def flax_name(path) -> str:
@@ -142,10 +163,13 @@ def flax_param_tree(module: nn.Module, values: Optional[dict] = None
     return tree
 
 
-def state_dict_to_flax(module: nn.Module) -> dict:
+def state_dict_to_flax(module: nn.Module, values: Optional[dict] = None
+                       ) -> dict:
     """The port's parameters and BatchNorm statistics as the JAX trees
     ``{'params': ..., 'batch_stats': ...}`` of float32 numpy arrays (the
-    inverse of :func:`flax_to_state_dict`)."""
+    inverse of :func:`flax_to_state_dict`).  ``values`` (name -> tensor)
+    replaces parameters' own values, as in :func:`flax_param_tree`; the
+    others keep theirs."""
     stats: dict = {}
     for mod_name, mod in module.named_modules():
         if isinstance(mod, nn.modules.batchnorm._BatchNorm):
@@ -153,4 +177,6 @@ def state_dict_to_flax(module: nn.Module) -> dict:
             for flax_stat, buf in _STAT_NAMES.items():
                 _nest(stats, path + [flax_stat],
                       getattr(mod, buf).detach().float().cpu().numpy())
-    return {'params': flax_param_tree(module), 'batch_stats': stats}
+    if values is not None:
+        values = {**dict(module.named_parameters()), **values}
+    return {'params': flax_param_tree(module, values), 'batch_stats': stats}

@@ -22,6 +22,10 @@ probability 0.2), shared over the batch and time and applied to ``h`` only,
 scaled by ``1/keep``.  The cell's BatchNorms run once per time step, so in
 train mode (``bn_train``) their statistics move at every step, as the JAX
 scan carries ``batch_stats``.
+
+Under mesh training the convolutions run through ``shard.conv2d`` and the
+BatchNorms reduce over the mesh (``models/layers.py``); the recurrent mask
+has no batch or row axis, so every rank draws the same one.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ from retargetvid_tpu_torch.models.layers import (
     make_bn,
     relu6,
 )
+from retargetvid_tpu_torch.parallel import shard
 
 __all__ = ["ConvGRUCell", "ConvGRU"]
 
@@ -59,8 +64,9 @@ class _MobileConv(nn.Module):
         self.conv_sep = nn.Conv2d(in_ch, out_ch, 1, bias=False)
 
     def forward(self, x, source: str = 'DHF1K'):
-        return self.conv_sep(relu6(apply_bn(self.sep_bn, self.conv_dw(x),
-                                            source)))
+        h = relu6(apply_bn(self.sep_bn, shard.conv2d(self.conv_dw, x),
+                           source))
+        return shard.conv2d(self.conv_sep, h)
 
 
 class ConvGRUCell(nn.Module):

@@ -13,6 +13,12 @@ batch's statistics normalize and the running statistics move as
 variance ``E[x^2] - E[x]^2`` clipped at 0 (flax 0.12.3 ``_compute_stats``,
 ``use_fast_variance=True``).  Off, it normalizes with the running
 statistics.
+
+Under mesh training (``parallel/shard.py``) each conv runs through
+``shard.conv2d`` (row halos over sp, column-parallel over tp) and
+train-mode BatchNorm takes its moments over the ranks that split the batch
+(SyncBN: the gradient flows through the reduced moments), so every rank's
+running statistics agree.
 """
 
 from __future__ import annotations
@@ -22,6 +28,8 @@ from typing import Sequence
 import torch
 from torch import nn
 from torch.nn import functional as F
+
+from retargetvid_tpu_torch.parallel import shard
 
 DEFAULT_SOURCES = ('DHF1K', 'Hollywood', 'UCFSports', 'SALICON')
 _BN_EPS = 1e-5
@@ -65,9 +73,13 @@ class BatchNorm(nn.BatchNorm2d):
         if not self.bn_train:
             return batch_norm_eval(self, x)
         xf = x.float()
-        mean = xf.mean(dim=(0, 2, 3))
-        var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean,
-                          min=0.0)
+        sharded = shard.current()
+        if sharded is not None and sharded.stat.size > 1:
+            mean, var = sharded.moments(xf)
+        else:
+            mean = xf.mean(dim=(0, 2, 3))
+            var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean,
+                              min=0.0)
         with torch.no_grad():
             m = self.flax_momentum
             self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
@@ -124,7 +136,7 @@ class ConvBN(nn.Module):
         self.bn = make_bn(features, ds_bn, sources)
 
     def forward(self, x, source: str = 'DHF1K'):
-        return relu6(apply_bn(self.bn, self.conv(x), source))
+        return relu6(apply_bn(self.bn, shard.conv2d(self.conv, x), source))
 
 
 class Conv1x1BN(nn.Module):
@@ -138,7 +150,7 @@ class Conv1x1BN(nn.Module):
         self.bn = make_bn(features, ds_bn, sources)
 
     def forward(self, x, source: str = 'DHF1K'):
-        return relu6(apply_bn(self.bn, self.conv(x), source))
+        return relu6(apply_bn(self.bn, shard.conv2d(self.conv, x), source))
 
 
 class InvertedResidual(nn.Module):
@@ -172,7 +184,8 @@ class InvertedResidual(nn.Module):
     def forward(self, x, source: str = 'DHF1K'):
         h = x
         if self.expand:
-            h = relu6(apply_bn(self.pw_bn, self.pw(h), source))
-        h = relu6(apply_bn(self.dw_bn, self.dw(h), source))
-        h = apply_bn(self.pw_linear_bn, self.pw_linear(h), source)
+            h = relu6(apply_bn(self.pw_bn, shard.conv2d(self.pw, h), source))
+        h = relu6(apply_bn(self.dw_bn, shard.conv2d(self.dw, h), source))
+        h = apply_bn(self.pw_linear_bn, shard.conv2d(self.pw_linear, h),
+                     source)
         return x + h if self.use_res_connect else h

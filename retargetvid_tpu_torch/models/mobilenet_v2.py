@@ -6,6 +6,10 @@ residual table; the FIRST block of every group is built with
 slicing; ``feat_4x`` is block 7's output and ``feat_2x`` block 14's, both
 taken before their trailing subsample; an optional trailing 1x1 conv to
 ``last_channel``.
+
+Under mesh training the rows are split over sp (``parallel/shard.py``):
+the stride-2 stem and every ``::2`` subsample keep the rows the global
+tensor keeps, whatever row a shard starts on.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ from retargetvid_tpu_torch.models.layers import (
     Conv1x1BN,
     InvertedResidual,
 )
+from retargetvid_tpu_torch.parallel import shard
 
 # (expand_ratio, channels, repeats, stride) -- the standard MobileNetV2 table.
 INVERTED_RESIDUAL_SETTING = (
@@ -75,7 +80,10 @@ class MobileNetV2(nn.Module):
         return int(INVERTED_RESIDUAL_SETTING[-4][1] * self.widen_factor)
 
     def forward(self, x):
+        sharded = shard.current()
         x = self.features_0(x)
+        if sharded is not None:
+            sharded.descend()
         feat_2x = feat_4x = None
         for idx in range(1, self.n_blocks + 1):
             x = getattr(self, f'features_{idx}')(x)
@@ -84,7 +92,8 @@ class MobileNetV2(nn.Module):
             elif idx == 14:
                 feat_2x = x
             if self._strides[idx - 1] != 1:
-                x = x[..., ::2, ::2]
+                x = x[..., ::2, ::2] if sharded is None else \
+                    sharded.subsample(x)
         if self.last_channel is not None:
             x = getattr(self, f'features_{self.n_blocks + 1}')(x)
         return x, feat_2x, feat_4x

@@ -27,6 +27,13 @@ also returns the ConvGRU's final hidden state (B, C, h, w), NCHW.  The
 network computes in the dtype of its parameters; an input of another dtype
 is cast to it (the JAX model's float32 parameters likewise promote a bf16
 input to float32).
+
+Under mesh training (``parallel/shard.py``) ``x`` is this rank's block:
+its samples of the global batch and its rows of the frames.  The dropout
+masks are drawn at the global batch's shape and sliced, the priors are
+computed at the global height and sliced, the resizes, the smoothing's
+replicate padding and the log-softmax reach across the row shards, and the
+output is this rank's block of the global log-probabilities.
 """
 
 from __future__ import annotations
@@ -52,6 +59,7 @@ from retargetvid_tpu_torch.models.layers import (
 )
 from retargetvid_tpu_torch.models.mobilenet_v2 import MobileNetV2
 from retargetvid_tpu_torch.ops.resize import resize
+from retargetvid_tpu_torch.parallel import shard
 
 __all__ = ["UNISAL", "manual_gaussian_init", "gaussian_prior_maps",
            "spatial_log_softmax", "smoothing_kernel_init",
@@ -138,9 +146,14 @@ class _SkipConnection(nn.Module):
                 generator=None):
         x = self.expansion(x, source)
         if not deterministic:
-            x = dropout.dropout(x, self.drop_prob, x.shape[:2] + (1, 1),
-                                generator)
-        return apply_bn(self.reduction_bn, self.reduction_conv(x), source)
+            n, rows = x.shape[0], None
+            sharded = shard.current()
+            if sharded is not None:
+                n, rows = sharded.batch_rows(n)
+            x = dropout.dropout(x, self.drop_prob, (n, x.shape[1], 1, 1),
+                                generator, rows)
+        return apply_bn(self.reduction_bn,
+                        shard.conv2d(self.reduction_conv, x), source)
 
 
 class UNISAL(nn.Module):
@@ -249,6 +262,22 @@ class UNISAL(nn.Module):
         finally:
             self.set_bn_train(saved)
 
+    @staticmethod
+    def _level(h: int) -> None:
+        sharded = shard.current()
+        if sharded is not None:
+            sharded.at(h)
+
+    @staticmethod
+    def _resize(x, out_hw, method: str):
+        """``resize`` of NCHW ``x``; under mesh training across the row
+        shards, from the current level to the one of height
+        ``out_hw[0]``."""
+        sharded = shard.current()
+        if sharded is None:
+            return resize(x, out_hw, method, channels_last=False)
+        return sharded.resize(x, out_hw, method)
+
     def forward(self, x, target_size: Optional[Tuple[int, int]] = None,
                 source: str = 'DHF1K', h0=None,
                 static: Optional[bool] = None,
@@ -273,20 +302,33 @@ class UNISAL(nn.Module):
         if source not in self.sources:
             raise ValueError(f'unknown source {source!r}')
         b, t, h, w, c = x.shape
+        sharded = shard.current()
+        if sharded is not None:
+            h = sharded.at(sharded.height).level    # the global height
         if target_size is None:
             target_size = (h, w)
         if static is None:
             static = t == 1 or self.sources == ('SALICON',)
         dtype = self.cnn.features_0.conv.weight.dtype
-        flat = x.reshape(b * t, h, w, c).permute(0, 3, 1, 2).to(dtype)
+        flat = x.reshape(b * t, x.shape[2], w, c).permute(0, 3, 1, 2).to(
+            dtype)
         feat_1x, feat_2x, feat_4x = self.cnn(flat)
+        # Global heights of the 1/8, 1/16 and 1/32 levels.
+        h8 = shard.halve(shard.halve(shard.halve(h)))
+        h16, h32 = shard.halve(h8), shard.halve(shard.halve(h8))
+        self._level(h16)
         feat_2x = self.skip_2x(feat_2x, source, deterministic, generator)
+        self._level(h8)
         feat_4x = self.skip_4x(feat_4x, source, deterministic, generator)
+        self._level(h32)
 
         if self.n_gaussians > 0:
             gsuf = self._suffix(self.ds_gaussians, source)
             priors = gaussian_prior_maps(
-                getattr(self, f'coarse_gaussians{gsuf}'), feat_1x.shape[2:])
+                getattr(self, f'coarse_gaussians{gsuf}'),
+                (h32, feat_1x.shape[3]))
+            if sharded is not None:
+                priors = sharded.row_slice(priors)
             priors = priors[None].expand(feat_1x.shape[0], -1, -1, -1)
             feat_1x = torch.cat([feat_1x, priors.to(dtype)], dim=1)
         up = self.post_cnn(feat_1x, source)
@@ -303,21 +345,22 @@ class UNISAL(nn.Module):
             up = up + rnn_out if self.res_rnn else rnn_out
 
         # Decoder.
-        up = resize(up, (up.shape[2] * 2, up.shape[3] * 2), 'linear',
-                    channels_last=False).to(dtype)
+        up = self._resize(up, (2 * h32, up.shape[3] * 2), 'linear').to(dtype)
         up = torch.cat([up, feat_2x], dim=1)
         up = self.upsampling_2_inv_res(up, source)
-        up = resize(up, (up.shape[2] * 2, up.shape[3] * 2), 'linear',
-                    channels_last=False).to(dtype)
+        up = self._resize(up, (4 * h32, up.shape[3] * 2), 'linear').to(dtype)
         up = torch.cat([up, feat_4x], dim=1)
         up = self.post_upsampling_2_inv_res(up, source)
-        up = getattr(self, 'adaptation'
-                     + self._suffix(self.ds_adaptation, source))(up)
+        up = shard.conv2d(getattr(self, 'adaptation' + self._suffix(
+            self.ds_adaptation, source)), up)
 
         # Nearest resize to the input size, edge pad, smoothing.
-        up = resize(up, (h, w), 'nearest', channels_last=False).to(dtype)
+        up = self._resize(up, (h, w), 'nearest').to(dtype)
         pad = self.smoothing_ksize // 2
-        up = F.pad(up, (pad, pad, pad, pad), mode='replicate')
+        if sharded is None:
+            up = F.pad(up, (pad, pad, pad, pad), mode='replicate')
+        else:
+            up = sharded.replicate_pad(up, pad)
         ssuf = self._suffix(self.ds_smoothing, source)
         if self.smoothing_rank:
             up = F.conv2d(up, getattr(self, f'smoothing_v{ssuf}'))
@@ -325,6 +368,9 @@ class UNISAL(nn.Module):
         else:
             up = F.conv2d(up, getattr(self, f'smoothing{ssuf}'))
 
-        up = resize(up, target_size, 'linear', channels_last=False)
-        up = spatial_log_softmax(up)                      # (BT, 1, th, tw)
+        up = self._resize(up, target_size, 'linear')
+        if sharded is not None and sharded.split:
+            up = sharded.log_softmax(up)
+        else:
+            up = spatial_log_softmax(up)                  # (BT, 1, th, tw)
         return up.permute(0, 2, 3, 1).reshape(b, t, *up.shape[2:], 1), hidden

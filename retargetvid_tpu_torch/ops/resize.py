@@ -22,8 +22,8 @@ import functools
 import numpy as np
 import torch
 
-__all__ = ["resize", "resize_by_factor", "factor_dst_size", "round_half_up",
-           "RESIZE_TYPE_TO_METHOD"]
+__all__ = ["resize", "resize_by_factor", "apply_taps", "factor_dst_size",
+           "round_half_up", "RESIZE_TYPE_TO_METHOD"]
 
 #: The crop parameters' ``resize_type`` codes as method names (reference
 #: ``smartVidCrop.py:141-143``).
@@ -176,10 +176,19 @@ def _resize_axis(x: torch.Tensor, dim: int, dst: int, method: str,
     fuses too and matches neither.
     """
     idx_np, w_np = _taps_np(int(x.shape[dim]), dst, method, scale)
-    idx = torch.from_numpy(idx_np).to(x.device)
+    return apply_taps(x, dim, idx_np, w_np)
+
+
+def apply_taps(x: torch.Tensor, dim: int, idx_np: np.ndarray,
+               w_np: np.ndarray) -> torch.Tensor:
+    """``sum_k x[idx[k]] * w[k]`` along ``dim`` in ascending k, each
+    product rounded to float32 before it is added (``_resize_axis``'s
+    arithmetic); ``idx``/``w`` (K, dst) index ``x``'s own positions."""
+    idx = torch.from_numpy(np.ascontiguousarray(idx_np)).to(x.device)
+    dst = idx.shape[1]
     shape = [1] * x.ndim
     shape[dim] = dst
-    w = torch.from_numpy(w_np).to(x.device)
+    w = torch.from_numpy(np.ascontiguousarray(w_np)).to(x.device)
     out = None
     for k in range(idx.shape[0]):
         # Gather before the (exact) float32 conversion: a uint8 clip is

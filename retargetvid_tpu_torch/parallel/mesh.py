@@ -13,6 +13,9 @@ JAX lays its device list out with ``reshape(axis_sizes)``:
 
 Each rank knows its coordinates and its device.  Without an initialized
 process group, :func:`make_mesh` is a world of 1 on the caller's device.
+Mesh training reaches the ranks that share all but one coordinate through
+:attr:`Mesh.groups`: one process group per axis, and one over dp x sp (the
+ranks that share a tp coordinate), built on first use.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import torch.distributed as dist
 from torch import nn
 
 from retargetvid_tpu_torch.device import resolve_device
+from retargetvid_tpu_torch.parallel.collectives import AxisGroup, barrier
 
 __all__ = ["make_mesh", "batch_sharding", "param_shardings", "AXES", "Mesh",
            "Sharding", "mesh_shape"]
@@ -81,10 +85,23 @@ class Mesh:
             rank, tuple(self.shape.values())))))
         self.device = _device_of(device)
         self.group = group
+        self._groups = None
 
     @property
     def dp_index(self) -> int:
         return self.coords['dp']
+
+    @property
+    def groups(self) -> dict:
+        """This rank's :class:`~.collectives.AxisGroup` along ``dp``,
+        ``sp``, ``tp``, ``dpsp`` (dp and sp together) and ``all``.  Every rank
+        creates every group of more than one rank, in one order, the first
+        time any rank asks (a collective call: all ranks must ask), then
+        meets each of its groups once, so a group that cannot form fails
+        here.  Without a process group every axis must have size 1."""
+        if self._groups is None:
+            self._groups = _make_groups(self)
+        return self._groups
 
     def ranks_on(self, **coords) -> list:
         """The ranks whose coordinates equal ``coords`` on the axes named."""
@@ -95,6 +112,33 @@ class Mesh:
     def __repr__(self):
         return (f'Mesh({self.shape}, rank={self.rank}, coords={self.coords},'
                 f' device={self.device})')
+
+
+#: The axes each of :attr:`Mesh.groups` spans.
+GROUP_AXES = {'dp': ('dp',), 'sp': ('sp',), 'tp': ('tp',),
+              'dpsp': ('dp', 'sp'), 'all': AXES}
+
+
+def _make_groups(mesh: Mesh) -> dict:
+    from retargetvid_tpu_torch.parallel.distributed import _timeout
+    out = {}
+    for name, spans in GROUP_AXES.items():
+        fixed = [a for a in AXES if a not in spans]
+        mine = None
+        for coords in np.ndindex(*(mesh.shape[a] for a in fixed)):
+            ranks = mesh.ranks_on(**dict(zip(fixed, coords)))
+            pg = None
+            if len(ranks) > 1:
+                if mesh.group is None:
+                    raise ValueError(f'a mesh of {mesh.size} ranks without '
+                                     'a process group has no groups')
+                pg = dist.new_group(ranks, timeout=_timeout(None))
+            if mesh.rank in ranks:
+                mine = AxisGroup(ranks, ranks.index(mesh.rank), pg)
+        out[name] = mine
+    for group in out.values():
+        barrier(group, mesh.device)
+    return out
 
 
 def make_mesh(n_devices: Optional[int] = None,

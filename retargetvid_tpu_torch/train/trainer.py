@@ -18,7 +18,26 @@ state is a trace per parameter and a step count.  Weights and checkpoints
 are written in the JAX package's pickle format (``convert.py``), so a run
 directory of either package loads in the other.  Batches are put on the
 trainer's device (``device=None`` means the GPU); every dropout mask is
-drawn from the trainer's ``torch.Generator``.  Mesh training is not ported.
+drawn from the trainer's ``torch.Generator``.
+
+Mesh training (``init_state(mesh=...)`` or ``fit(mesh=...)``; JAX's
+contract: it computes what single-device training on the global batch
+computes, up to the order of reductions).  One process per GPU, joined by
+``torch.distributed`` (``parallel/distributed.py``), forms a (dp, sp, tp)
+``parallel.mesh.Mesh``.  Every rank holds the whole host batch and keeps
+its block (:meth:`Trainer._shard_batch`: B over dp, H over sp when sp
+divides it, else whole frames on every sp rank); the model runs under a
+``parallel/shard.py:ModelShard`` (row halos, column-parallel convs,
+BatchNorm moments and loss sums reduced over the mesh).  A weight that
+``param_shardings`` splits holds its rank's O/tp output channels, and so
+does its momentum trace.  The step all-reduces the gradients over dp x sp
+(one flat buffer; over dp alone when the rows are replicated), leaves the
+tp-split ones local, clips by the norm of the whole gradient (the split
+leaves' squares summed over tp, each replicated leaf counted once) and
+reports global metrics.  Weights and checkpoints stay full JAX trees:
+gathered over tp, written by rank 0, cut again on load.  ``score_model``
+and ``run_inference`` run a full copy of the model (gathered weights) on
+every rank.
 """
 
 from __future__ import annotations
@@ -39,11 +58,18 @@ from retargetvid_tpu_torch.convert import (
     flax_param_tree,
     flax_to_state_dict,
     load_flax_variables,
+    shard_entries,
     state_dict_to_flax,
 )
 from retargetvid_tpu_torch.device import resolve_device
 from retargetvid_tpu_torch.models.init import seeded_init_
 from retargetvid_tpu_torch.models.unisal import UNISAL
+from retargetvid_tpu_torch.parallel import shard
+from retargetvid_tpu_torch.parallel.collectives import (
+    all_reduce,
+    barrier,
+    gather_over,
+)
 from retargetvid_tpu_torch.train.losses import loss_sequences
 
 __all__ = ["TrainState", "make_optimizer", "make_train_step",
@@ -113,16 +139,27 @@ class _SGD:
 
     @torch.no_grad()
     def update(self, params: dict, grads: dict, mask: dict,
-               state: dict) -> dict:
+               state: dict, tp_split=(), tp=None) -> dict:
         """Apply one step in place to ``params`` (name -> Parameter) with
         ``grads`` (name -> tensor or None) under ``mask`` (name -> 0/1);
-        returns the new state (the traces are updated in place)."""
+        returns the new state (the traces are updated in place).  On a
+        mesh, ``tp_split`` names the parameters split over the group
+        ``tp``: the clip's norm sums their squares over it."""
         live = [n for n in params if mask[n] > 0]
         gs = [grads[n] if grads.get(n) is not None
               else torch.zeros_like(params[n]) for n in live]
         if not gs:
             return {'trace': state['trace'], 'count': state['count'] + 1}
-        gnorm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(gs)))
+        norms = torch._foreach_norm(gs)
+        split = [i for i, n in enumerate(live) if n in tp_split]
+        if tp is not None and tp.size > 1 and split:
+            sq = torch.stack(norms) ** 2
+            mine = torch.zeros_like(sq)
+            mine[split] = sq[split]
+            gnorm = torch.sqrt((sq - mine).sum()
+                               + all_reduce(mine.sum(), tp))
+        else:
+            gnorm = torch.linalg.vector_norm(torch.stack(norms))
         scale = torch.clamp(self.grad_clip / torch.clamp(gnorm, min=1e-12),
                             max=1.0)
         lr_t = self.lr_at(state['count'])
@@ -179,8 +216,9 @@ def _summands(model, x, sal, fix, *, source, static, metrics, loss_weights,
               deterministic, generator):
     logp = model(x, source=source, static=static,
                  deterministic=deterministic, generator=generator)
-    summands = [torch.mean(s) for s in loss_sequences(logp, sal, fix,
-                                                      metrics)]
+    sharded = shard.current()
+    mean = torch.mean if sharded is None else sharded.batch_mean
+    summands = [mean(s) for s in loss_sequences(logp, sal, fix, metrics)]
     loss = sum(wt * s for wt, s in zip(loss_weights, summands))
     out = {'loss': loss}
     for name, val in zip(metrics, summands):
@@ -194,48 +232,74 @@ def make_train_step(model: UNISAL, tx, *, source: str,
                     static_batch: Optional[bool] = None,
                     train_cnn: bool = True,
                     sources=('DHF1K', 'Hollywood', 'UCFSports', 'SALICON'),
-                    generator: Optional[torch.Generator] = None):
+                    generator: Optional[torch.Generator] = None,
+                    mesh=None, tp_split=()):
     """A train step for one source.
 
     step(state, x (B,T,H,W,3), sal (B,T,H,W,1), fix (B,T,H,W,1)) ->
     (state, {'loss', *metrics}: 0-d tensors).  The forward runs with
     dropout live (masks from ``generator``) and, where ``model.bn_train``,
     moves the BatchNorm statistics; only unmasked parameters take
-    gradients.
+    gradients.  With ``mesh`` the arrays are this rank's blocks and the
+    step takes ``layout``, ``Trainer._layout`` of the global batch; the
+    model's parameters named in ``tp_split`` hold their tp slices (see the
+    module docstring).
     """
     params = dict(model.named_parameters())
 
-    def step(state: TrainState, x, sal, fix):
+    def step(state: TrainState, x, sal, fix, layout=None):
         static = x.shape[1] == 1 if static_batch is None else static_batch
         mask = _grad_mask(params, source=source, static_batch=static,
                           train_cnn=train_cnn, sources=sources)
         live = [n for n in params if mask[n] > 0]
         for n, p in params.items():
             p.requires_grad_(mask[n] > 0)
-        out = _summands(model, x, sal, fix, source=source, static=static,
-                        metrics=metrics, loss_weights=loss_weights,
-                        deterministic=False, generator=generator)
-        grads = torch.autograd.grad(out['loss'], [params[n] for n in live],
-                                    allow_unused=True) if live else ()
+        sharded = None if mesh is None else shard.ModelShard(mesh, *layout)
+        with shard.active(sharded):
+            out = _summands(model, x, sal, fix, source=source,
+                            static=static, metrics=metrics,
+                            loss_weights=loss_weights, deterministic=False,
+                            generator=generator)
+            grads = torch.autograd.grad(
+                out['loss'], [params[n] for n in live],
+                allow_unused=True) if live else ()
+        if sharded is not None:
+            grads = _reduce_grads([g if g is not None else
+                                   torch.zeros_like(params[n])
+                                   for n, g in zip(live, grads)],
+                                  sharded.stat)
         opt_state = tx.update(params, dict(zip(live, grads)), mask,
-                              state.opt_state)
+                              state.opt_state, tp_split=tp_split,
+                              tp=None if sharded is None else sharded.tp)
         return (TrainState(opt_state, state.step + 1),
                 {k: v.detach() for k, v in out.items()})
 
     return step
 
 
+def _reduce_grads(grads: list, group) -> list:
+    """The gradients summed over ``group`` in one all-reduce of a flat
+    buffer."""
+    if group.size == 1:
+        return grads
+    flat = all_reduce(torch.cat([g.reshape(-1) for g in grads]), group)
+    return [f.view_as(g) for f, g in zip(
+        flat.split([g.numel() for g in grads]), grads)]
+
+
 def make_eval_step(model: UNISAL, *, source: str,
                    loss_weights=(1.0, -0.1, -0.1),
                    metrics=('kld', 'nss', 'cc'),
-                   static_batch: Optional[bool] = None):
+                   static_batch: Optional[bool] = None, mesh=None):
     """Forward-only loss evaluation with ``bn_train`` off and no dropout
     (the reference's valid phase, ``train.py:356-366``):
-    step(x, sal, fix) -> {'loss', *metrics}."""
+    step(x, sal, fix) -> {'loss', *metrics}; with ``mesh``,
+    step(x, sal, fix, layout) on this rank's blocks, global metrics."""
 
-    def step(x, sal, fix):
+    def step(x, sal, fix, layout=None):
         static = x.shape[1] == 1 if static_batch is None else static_batch
-        with torch.no_grad(), model.bn_mode(False):
+        sharded = None if mesh is None else shard.ModelShard(mesh, *layout)
+        with torch.no_grad(), model.bn_mode(False), shard.active(sharded):
             return _summands(model, x, sal, fix, source=source,
                              static=static, metrics=metrics,
                              loss_weights=loss_weights, deterministic=True,
@@ -291,6 +355,11 @@ class Trainer(KwConfig):
         self._steps: dict = {}
         self.state: Optional[TrainState] = None
         self._tx = None
+        #: The (dp, sp, tp) ``parallel.mesh.Mesh`` of mesh training (set by
+        #: ``fit(mesh=...)`` / ``init_state(mesh=...)``); runtime-only.
+        self.mesh = None
+        #: Parameter name -> the dimension split over tp.
+        self._tp_dims: dict = {}
 
         # Loop bookkeeping (reference train.py:190-205).
         self.epoch = 0
@@ -313,17 +382,87 @@ class Trainer(KwConfig):
             cnn_lr_factor=self.cnn_lr_factor, grad_clip=self.grad_clip)
 
     def init_state(self, rng_seed: int = 0,
-                   variables: Optional[dict] = None) -> TrainState:
+                   example_shape=(1, 1, 224, 416, 3),
+                   variables: Optional[dict] = None, mesh=None,
+                   tp_threshold: int = 256) -> TrainState:
         """Seed the model's weights (or adopt the JAX trees
-        ``variables``) and create the optimizer state."""
+        ``variables``) and create the optimizer state.
+
+        With ``mesh`` (or a mesh set before), every rank builds the same
+        full model, then keeps its tp slice of each weight that
+        ``parallel.mesh.param_shardings`` splits at ``tp_threshold``; the
+        momentum traces start as zeros of those slices.  ``example_shape``
+        is JAX's signature: the port's modules know their shapes.
+        """
+        if mesh is not None:
+            self._use_mesh(mesh)
+        if self._tp_dims:                     # start from a full model
+            self.model = UNISAL(**{'bn_train': True, **self.model_cfg}).to(
+                self.device)
+            self._tp_dims = {}
+        self._steps = {}
         if variables is None:
             seeded_init_(self.model, rng_seed)
         else:
             load_flax_variables(self.model, variables)
+        if self.mesh is not None and self.mesh.shape['tp'] > 1:
+            from retargetvid_tpu_torch.parallel.mesh import param_shardings
+            dims = param_shardings(self.mesh, self._params(),
+                                   tp_threshold=tp_threshold)
+            self._tp_dims = {n: d for n, d in dims.items() if d is not None}
+            params = self._params()
+            for name, (dim, index, parts) in self._tp_spec().items():
+                n = params[name].shape[dim] // parts
+                params[name].data = params[name].data.narrow(
+                    dim, index * n, n).clone()
         self._tx = self._make_tx()
         self.state = TrainState(opt_state=self._tx.init(self._params()),
                                 step=0)
         return self.state
+
+    def _use_mesh(self, mesh) -> None:
+        """Train on ``mesh``: its device becomes the trainer's, and its
+        process groups form (every rank must get here)."""
+        self.mesh = mesh
+        if mesh.device != self.device:
+            self.device = mesh.device
+            self.model.to(self.device)
+            self.generator = torch.Generator(device=self.device)
+        if mesh.size > 1:
+            _ = mesh.groups           # forms the process groups, all ranks
+
+    def _tp_spec(self) -> dict:
+        """Parameter name -> ``(dim, tp index, tp size)`` of the split
+        ones (``convert.load_flax_variables``'s ``shards``)."""
+        if not self._tp_dims:
+            return {}
+        tp, index = self.mesh.shape['tp'], self.mesh.coords['tp']
+        return {n: (d, index, tp) for n, d in self._tp_dims.items()}
+
+    def _full(self, values: dict) -> dict:
+        """``values`` (parameter name -> tensor) with the tp-split ones
+        gathered whole (a collective: every rank calls it)."""
+        out = dict(values)
+        for name, dim in self._tp_dims.items():
+            if name in out:
+                with torch.no_grad():
+                    out[name] = gather_over(out[name].detach(), dim,
+                                            self.mesh.groups['tp'])
+        return out
+
+    def _flax_tree(self) -> dict:
+        """The model's full JAX trees (gathered over tp)."""
+        return state_dict_to_flax(self.model, self._full(self._params()))
+
+    @property
+    def _writes(self) -> bool:
+        """Whether this process writes the run's files (rank 0)."""
+        return self.mesh is None or self.mesh.rank == 0
+
+    def _written(self) -> None:
+        """Every rank waits until rank 0 has written."""
+        if self.mesh is not None and self.mesh.size > 1:
+            barrier(self.mesh.groups['all'], self.device)
 
     def step_fn(self, source: str, static_batch: bool, train_cnn: bool):
         key = (source, static_batch, train_cnn)
@@ -332,11 +471,47 @@ class Trainer(KwConfig):
                 self.model, self._tx, source=source,
                 loss_weights=self.loss_weights, metrics=self.loss_metrics,
                 static_batch=static_batch, train_cnn=train_cnn,
-                sources=self.data_sources, generator=self.generator)
+                sources=self.data_sources, generator=self.generator,
+                mesh=self.mesh, tp_split=frozenset(self._tp_dims))
         return self._steps[key]
 
     def _batch(self, arr) -> torch.Tensor:
         return torch.as_tensor(arr).to(self.device, torch.float32)
+
+    def _rows_split(self, shape) -> bool:
+        sp = self.mesh.shape['sp']
+        return len(shape) >= 5 and sp > 1 and shape[2] % sp == 0
+
+    def _layout(self, shape):
+        """``(height, rows split)`` of a global batch of ``shape`` on the
+        mesh (``None`` without one)."""
+        if self.mesh is None:
+            return None
+        return int(shape[2]), self._rows_split(tuple(shape))
+
+    def _shard_batch(self, arr) -> torch.Tensor:
+        """This rank's block of one global batch array, on its device:
+        B over dp, H over sp when sp divides it (else the sp ranks hold
+        whole frames, as JAX replicates them)."""
+        t = torch.as_tensor(arr)
+        if self.mesh is None:
+            return t.to(self.device, torch.float32)
+        dp = self.mesh.shape['dp']
+        if t.shape[0] % dp:
+            raise ValueError(
+                f'batch size {t.shape[0]} not divisible by the mesh dp '
+                f'axis ({dp})')
+        n = t.shape[0] // dp
+        t = t[self.mesh.coords['dp'] * n:][:n]
+        if self._rows_split(tuple(t.shape)):
+            k = t.shape[2] // self.mesh.shape['sp']
+            t = t[:, :, self.mesh.coords['sp'] * k:][:, :, :k]
+        return t.to(self.device, torch.float32)
+
+    def _shard_arrays(self, x, sal, fix):
+        """The blocks of one (x, sal, fix) batch and its layout."""
+        layout = self._layout(tuple(x.shape))
+        return (*(self._shard_batch(a) for a in (x, sal, fix)), layout)
 
     def source_weight(self, source: str) -> float:
         return {'SALICON': self.salicon_weight,
@@ -346,7 +521,7 @@ class Trainer(KwConfig):
     # -- training --------------------------------------------------------
     def fit(self, dataloaders, train_dir, *, rng_seed: int = 0,
             chkpnt_warmup: int = 3, chkpnt_epochs: int = 2,
-            shuffle_datasets: bool = True):
+            shuffle_datasets: bool = True, mesh=None):
         """The reference's full training loop (``train.py:223-354``).
 
         ``dataloaders``: ``{source: {'train': factory, 'valid': factory}}``
@@ -356,8 +531,15 @@ class Trainer(KwConfig):
         after warmup, the DHF1K valid loss selects the best weights;
         checkpoints follow the reference's warmup/period rule; scalars
         export at the end.  Returns the best validation score
-        (``-val_loss``).
+        (``-val_loss``).  With ``mesh`` the run is mesh training (see the
+        module docstring); every rank calls ``fit`` with the same
+        arguments, batches and seed, and rank 0 writes the files.
         """
+        if mesh is not None:
+            if self.state is not None and self.mesh is not mesh:
+                raise ValueError('the trainer was initialized without this '
+                                 'mesh: pass it to init_state')
+            self._use_mesh(mesh)
         train_dir = Path(train_dir)
         train_dir.mkdir(parents=True, exist_ok=True)
         self.generator.manual_seed(rng_seed)
@@ -368,7 +550,8 @@ class Trainer(KwConfig):
         if self.state is None:
             self.steps_per_epoch = max(n_train, 1)
             self.init_state()
-        self.save_cfg(train_dir)
+        if self._writes:
+            self.save_cfg(train_dir)
 
         while self.epoch < self.num_epochs:
             self.fit_full_epoch(dataloaders, train_dir, pyrng,
@@ -380,7 +563,9 @@ class Trainer(KwConfig):
                 self.save_chkpnt(train_dir, self.epoch)
             self.epoch += 1
 
-        self.export_scalars(train_dir, self.history)
+        if self._writes:
+            self.export_scalars(train_dir, self.history)
+        self._written()
         return self.best_val_score
 
     @staticmethod
@@ -430,11 +615,13 @@ class Trainer(KwConfig):
                     self.best_val_score = val_score
                     self.is_best = True
                     self.save_weights(train_dir, 'best')
-                    with open(Path(train_dir) / 'best_epoch.dat', 'w') as fp:
-                        fp.write(str(self.epoch))
-                    with open(Path(train_dir) / 'best_val_loss.dat',
-                              'w') as fp:
-                        fp.write(str(val_score))
+                    if self._writes:
+                        with open(Path(train_dir) / 'best_epoch.dat',
+                                  'w') as fp:
+                            fp.write(str(self.epoch))
+                        with open(Path(train_dir) / 'best_val_loss.dat',
+                                  'w') as fp:
+                            fp.write(str(val_score))
                 else:
                     self.is_best = False
         self.history.append(epoch_scalars)
@@ -452,19 +639,20 @@ class Trainer(KwConfig):
         running: dict = {}
         counts: dict = {}
         for src in schedule:
-            x, sal, fix = (self._batch(a) for a in next(iters[src]))
+            x, sal, fix, layout = self._shard_arrays(*next(iters[src]))
             model_src = 'SALICON' if src == 'MIT1003' else src
             static = x.shape[1] == 1
             if phase == 'train':
                 step = self.step_fn(model_src, static, train_cnn)
-                self.state, m = step(self.state, x, sal, fix)
+                self.state, m = step(self.state, x, sal, fix, layout)
             else:
                 m = make_eval_step(
                     self.model, source=model_src,
                     loss_weights=self.loss_weights,
-                    metrics=self.loss_metrics, static_batch=static)(
-                    x, sal, fix)
-            b = int(x.shape[0])
+                    metrics=self.loss_metrics, static_batch=static,
+                    mesh=self.mesh)(x, sal, fix, layout)
+            b = int(x.shape[0]) * (1 if self.mesh is None
+                                   else self.mesh.shape['dp'])
             acc = running.setdefault(src, {k: 0.0 for k in m})
             for k, v in m.items():
                 acc[k] += float(v) * b
@@ -529,7 +717,8 @@ class Trainer(KwConfig):
                 best_epoch, best_val = self.epoch, val_loss
                 self.save_weights(train_dir, 'best')
             self.epoch += 1
-        self.export_scalars(train_dir, self.history)
+        if self._writes:
+            self.export_scalars(train_dir, self.history)
         return best_val, best_epoch
 
     def reconfigure_optimizer(self):
@@ -543,10 +732,13 @@ class Trainer(KwConfig):
     # -- weights (reference model.py:26-49), the JAX package's format ------
     def save_weights(self, directory, name: str = 'best') -> Path:
         directory = Path(directory)
-        directory.mkdir(parents=True, exist_ok=True)
         path = directory / f'weights_{name}.pkl'
-        with open(path, 'wb') as fp:
-            pickle.dump(state_dict_to_flax(self.model), fp)
+        tree = self._flax_tree()
+        if self._writes:
+            directory.mkdir(parents=True, exist_ok=True)
+            with open(path, 'wb') as fp:
+                pickle.dump(tree, fp)
+        self._written()
         return path
 
     def load_weights(self, path):
@@ -554,7 +746,7 @@ class Trainer(KwConfig):
             tree = pickle.load(fp)
         if self.state is None:
             self.init_state()
-        load_flax_variables(self.model, tree)
+        load_flax_variables(self.model, tree, shards=self._tp_spec())
         return self.state
 
     def fit_epoch(self, batches, epoch: int) -> dict:
@@ -563,15 +755,23 @@ class Trainer(KwConfig):
         totals: dict = {}
         count = 0
         for source, x, sal, fix in batches:
-            x = self._batch(x)
+            x, sal, fix, layout = self._shard_arrays(x, sal, fix)
             step = self.step_fn(source, x.shape[1] == 1, train_cnn)
-            self.state, m = step(self.state, x, self._batch(sal),
-                                 self._batch(fix))
+            self.state, m = step(self.state, x, sal, fix, layout)
             for k, v in m.items():
                 totals[k] = totals.get(k, 0.0) + float(v) * \
                     self.source_weight(source)
             count += 1
         return {k: v / max(count, 1) for k, v in totals.items()}
+
+    def full_model(self) -> UNISAL:
+        """The model with every weight whole: the trainer's own, or after
+        tp training a copy holding the gathered weights (a collective)."""
+        if not self._tp_dims:
+            return self.model
+        model = UNISAL(**{'bn_train': True, **self.model_cfg}).to(
+            self.device)
+        return load_flax_variables(model, self._flax_tree())
 
     # -- evaluation (reference score_model, train.py:977-1075) ------------
     def score_model(self, batches, source: str = 'DHF1K',
@@ -586,10 +786,11 @@ class Trainer(KwConfig):
 
         dev_metrics = [m for m in metrics if m in ('kld', 'nss', 'cc')]
         totals: dict = {m: [] for m in metrics}
+        model = self.full_model()
         for x, sal, fix in batches:
             x, sal_t, fix_t = (self._batch(a) for a in (x, sal, fix))
-            with torch.no_grad(), self.model.bn_mode(False):
-                logp = self.model(x, source=source, static=x.shape[1] == 1)
+            with torch.no_grad(), model.bn_mode(False):
+                logp = model(x, source=source, static=x.shape[1] == 1)
                 dev = loss_sequences(logp, sal_t, fix_t, dev_metrics)
             for name, val in zip(dev_metrics, dev):
                 totals[name].append(float(torch.mean(val)))
@@ -628,8 +829,9 @@ class Trainer(KwConfig):
         from retargetvid_tpu_torch.pipeline.saliency import SaliencyPredictor
 
         static = source in ('SALICON', 'MIT300', 'MIT1003')
-        with self.model.bn_mode(False):
-            predictor = SaliencyPredictor(self.model, source=source,
+        model = self.full_model()
+        with model.bn_mode(False):
+            predictor = SaliencyPredictor(model, source=source,
                                           device=self.device)
             if static:
                 maps = predictor.predict(frames)
@@ -682,17 +884,19 @@ class Trainer(KwConfig):
     # -- checkpointing (reference train.py:1627-1650 equivalents) ---------
     def save_chkpnt(self, directory, epoch: int) -> Path:
         directory = Path(directory)
-        directory.mkdir(parents=True, exist_ok=True)
         path = directory / f'chkpnt_epoch{epoch:04d}.pkl'
-        tree = state_dict_to_flax(self.model)
+        tree = self._flax_tree()
         tree['opt_state'] = {
-            'trace': flax_param_tree(self.model,
-                                     self.state.opt_state['trace']),
+            'trace': flax_param_tree(self.model, self._full(
+                self.state.opt_state['trace'])),
             'count': np.asarray(self.state.opt_state['count'], np.int32)}
         tree['step'] = np.asarray(self.state.step, np.int32)
-        with open(path, 'wb') as fp:
-            pickle.dump(tree, fp)
-        self.save_cfg(directory)
+        if self._writes:
+            directory.mkdir(parents=True, exist_ok=True)
+            with open(path, 'wb') as fp:
+                pickle.dump(tree, fp)
+            self.save_cfg(directory)
+        self._written()
         return path
 
     def load_chkpnt(self, path) -> TrainState:
@@ -700,9 +904,10 @@ class Trainer(KwConfig):
             tree = pickle.load(fp)
         if self._tx is None:
             self.init_state()
-        load_flax_variables(self.model, tree)
+        load_flax_variables(self.model, tree, shards=self._tp_spec())
         params = self._params()
-        trace = flax_to_state_dict({'params': tree['opt_state']['trace']})
+        trace = shard_entries(flax_to_state_dict(
+            {'params': tree['opt_state']['trace']}), self._tp_spec())
         if set(trace) != set(params):
             raise KeyError('checkpoint trace does not match the model')
         self.state = TrainState(

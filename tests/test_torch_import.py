@@ -38,7 +38,8 @@ def test_port_imports_no_jax(tmp_path):
                  'models.transnet_post', 'models.dropout', 'train.losses',
                  'train.trainer', 'train.measure', 'eval.saliency_metrics',
                  'parallel', 'parallel.mesh', 'parallel.distributed',
-                 'parallel.runner'):
+                 'parallel.runner', 'parallel.collectives',
+                 'parallel.shard', 'dryrun'):
         assert f'retargetvid_tpu_torch.{name}' in mods, name
     code = ('import importlib, sys\n'
             f'for m in {mods!r}: importlib.import_module(m)\n'
