@@ -7,8 +7,8 @@ Run from the root of a checkout.  It drives the port's paths -- the
 one-shot clip program, raw frames to crop boxes, the two-dispatch path, the
 streaming ingest with ``smart_vid_crop`` and the ``crop`` command, dynamic
 (ConvGRU) saliency, UNISAL training, the sharded runners and mesh
-training -- at full model width and fails (exit code != 0) if any phase
-fails:
+training, the throughput bench and the MFU tool -- at full model width
+and fails (exit code != 0) if any phase fails:
 
   (a) build: compile every CUDA kernel of the port from ``csrc/`` (one
       ``nvcc`` per source, started together) and report the seconds;
@@ -138,7 +138,22 @@ fails:
       3 train steps of the narrow UNISAL from the same weights (statistics
       drawn from a seed) and batch, every dropout mask all ones, give
       losses within 1e-4 relative and parameters and statistics within
-      1e-4 in relative L2 on the card and on the CPU.
+      1e-4 in relative L2 on the card and on the CPU;
+  (p) ``bench``: ``retargetvid_tpu_torch.bench.run_bench`` under
+      ``bench.py``'s protocol on the bench models and clips (warm-up seed
+      100, seeds 0..3 timed, 200..203 pipelined), in the default mode
+      (one-shot, full-sequence plan, per-clip and pipelined), the window
+      plan, multi-ratio, two-dispatch and ``BENCH_BATCH=2``
+      (``ShardedOneShot`` on a 1-rank NCCL group): every timed clip's
+      boxes in the frame, the kernel's launches one per clip (warm-up
+      included), the batch mode's picks, shots and boxes equal to
+      ``OneShotClipProgram.run``'s on the same clips; then ``python -m
+      retargetvid_tpu_torch.bench`` as a subprocess, its last line parsed;
+  (q) ``mfu``: ``retargetvid_tpu_torch.mfu`` on the bench models, both
+      targets' counted FLOPs (equal to ``FlopCounterMode``'s), slope ms per
+      forward, TFLOP/s and MFU against the peak of the convolutions' dtype,
+      and the bench clip's model FLOPs with their time at the peaks as a
+      share of each bench mode's per-clip time.
 
 ``--profile DIR`` adds one ``torch.profiler`` run of a clip on each of
 the main path, the ISM main path, the two streaming phases and
@@ -176,20 +191,9 @@ def fail(msg: str):
 def make_clip(n_frames=480, h=360, w=640, seed=0, shot_len=None):
     """The synthetic clip of ``bench.py:make_clip`` (a moving Gaussian blob
     over seeded noise); with ``shot_len``, the noise is drawn anew every
-    ``shot_len`` frames: a hard cut."""
-    rng = np.random.default_rng(seed)
-    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
-    frames = np.empty((n_frames, h, w, 3), np.uint8)
-    cx = w * (0.2 + 0.6 * np.linspace(0, 1, n_frames))
-    cy = h * (0.5 + 0.2 * np.sin(np.linspace(0, 8, n_frames)))
-    base = rng.integers(0, 60, (h, w, 3)).astype(np.float32)
-    for t in range(n_frames):
-        if shot_len and t and t % shot_len == 0:
-            base = rng.integers(0, 60, (h, w, 3)).astype(np.float32)
-        blob = 200 * np.exp(-(((yy - cy[t]) ** 2 + (xx - cx[t]) ** 2)
-                              / 2500.0))
-        frames[t] = np.clip(base + blob[..., None], 0, 255).astype(np.uint8)
-    return frames
+    ``shot_len`` frames: a hard cut (``retargetvid_tpu_torch.bench``)."""
+    from retargetvid_tpu_torch.bench import make_clip as bench_clip
+    return bench_clip(n_frames, h, w, seed, shot_len)
 
 
 def card_line() -> str:
@@ -458,16 +462,15 @@ def kernel_bound(shape):
 
 
 def build_models(seed=0):
-    from retargetvid_tpu_torch.models.init import seeded_init_
-    from retargetvid_tpu_torch.models.transnet import TransNetV1
-    from retargetvid_tpu_torch.models.unisal import UNISAL
+    """The bench's seeded full-width models, TransNet's head biased as
+    bench.py does (random weights fire a "cut" on every frame), so sampling
+    runs its realistic every-skip regime."""
     import torch
-    tn = seeded_init_(TransNetV1(), seed)
+
+    from retargetvid_tpu_torch import bench
+    tn, un = bench.build_models(seed)
     with torch.no_grad():
-        # Random weights fire a "cut" on every frame; bias the head as
-        # bench.py does so sampling runs its realistic every-skip regime.
-        tn.dense2.bias.copy_(torch.tensor([5.0, -5.0]))
-    un = seeded_init_(UNISAL(), seed + 1)
+        tn.dense2.bias.copy_(torch.tensor(bench.HEAD_BIAS))
     return tn, un
 
 
@@ -2024,6 +2027,139 @@ def phase_train_mesh(card, bench):
     return launches
 
 
+#: The bench modes of the ``bench`` phase: ``run_bench`` arguments and the
+#: kernel launches they make (warm-up included; two clips per batch).
+BENCH_MODES = {
+    'bench_default': ({}, 1 + 4 + 4),
+    'bench_windowed': ({'tn_fullseq': False}, 1 + 4 + 4),
+    'bench_multi_ratio': ({'multi_ratio': True}, 1 + 4 + 4),
+    'bench_two_dispatch': ({'oneshot': False}, 1 + 4),
+    'bench_batch2': ({'batch': 2}, 2 + 4 * 2),
+}
+
+
+def bench_outputs(out):
+    """The outputs dicts in one timed entry of ``run_bench`` (a clip, the
+    ratios of a clip, or the clips of a batch)."""
+    return out if isinstance(out, list) else [out]
+
+
+def phase_bench(card, bench):
+    """``retargetvid_tpu_torch.bench.run_bench`` in each mode of
+    :data:`BENCH_MODES` on the bench models and clips (seeds 0..3 and the
+    warm-up seed 100 shared with the other phases), then ``python -m
+    retargetvid_tpu_torch.bench`` once as a subprocess.  Returns the
+    records and the launches of each mode."""
+    import os
+
+    import torch
+
+    from retargetvid_tpu_torch.bench import run_bench
+    from retargetvid_tpu_torch.kernels.postprocess import saliency_postprocess
+    from retargetvid_tpu_torch.pipeline.oneshot import OneShotClipProgram
+    t_phase = time.perf_counter()
+    cache = {100: bench.warm, **dict(enumerate(bench.clips))}
+
+    def clip_fn(seed):
+        if seed not in cache:
+            cache[seed] = torch.from_numpy(make_clip(seed=seed)).cuda()
+        return cache[seed]
+
+    records, launches, outputs = {}, {}, {}
+    for name, (kw, want) in BENCH_MODES.items():
+        torch.cuda.synchronize()
+        saliency_postprocess.launches = 0
+        result, outs = run_bench(bench.tn, bench.un, clip_fn=clip_fn, **kw)
+        torch.cuda.synchronize()
+        launches[name] = saliency_postprocess.launches
+        if launches[name] != want:
+            fail(f'{name}: {launches[name]} saliency_postprocess launches, '
+                 f'expected {want} (one per clip)')
+        for entry in outs['per_clip'] + outs['pipelined']:
+            for r, out in enumerate(bench_outputs(entry)):
+                dest = bench.dests[r] if kw.get('multi_ratio') else None
+                bench.check(out, dest)
+        outputs[name] = outs
+        rec = dict(result, seconds=time.perf_counter() - t_phase)
+        rec['ms_per_clip'] = 480 / result['per_clip_fps'] * 1e3
+        if 'pipelined_fps' in result:
+            rec['pipelined_over_per_clip'] = (result['pipelined_fps']
+                                              / result['per_clip_fps'])
+        records[name] = rec
+
+    # The batch mode against OneShotClipProgram.run on the same clips and
+    # weights: the default mode's per-clip runs (seeds 0..3) and one run
+    # of seed 4.
+    single = {s: out for s, out in enumerate(
+        outputs['bench_default']['per_clip'])}
+    single[4] = OneShotClipProgram(bench.tn, bench.un, tn_fullseq=True).run(
+        clip_fn(4), bench.cp, **bench.kw)
+    box_px = []
+    for i, batch in enumerate(outputs['bench_batch2']['per_clip']):
+        for seed, got in zip((i, i + 1), batch):
+            want = single[seed]
+            if (got['fc_sel'], got['n_segments']) != (want['fc_sel'],
+                                                      want['n_segments']):
+                fail(f'bench_batch2: seed {seed} picks or shots differ '
+                     'from OneShotClipProgram.run')
+            box_px.append(max_abs_diff(got['boxes'], want['boxes']))
+    if max(box_px):
+        fail(f'bench_batch2: boxes differ from OneShotClipProgram.run by '
+             f'{box_px} px')
+    records['bench_batch2']['boxes_max_px_vs_oneshot_run'] = box_px
+    del cache
+    torch.cuda.empty_cache()
+
+    repo = Path(__file__).resolve().parent
+    proc = subprocess.run(
+        [sys.executable, '-m', 'retargetvid_tpu_torch.bench'], cwd=repo,
+        env=dict(os.environ, PYTHONPATH=str(repo)), capture_output=True,
+        text=True, timeout=600)
+    if proc.returncode != 0:
+        fail(f'python -m retargetvid_tpu_torch.bench exited with '
+             f'{proc.returncode}: {proc.stderr[-2000:]}')
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    missing = {'metric', 'value', 'unit', 'vs_baseline', 'protocol',
+               'tn_plan', 'ratios_per_dispatch', 'per_clip_fps',
+               'pipelined_fps', 'device', 'allow_tf32'} - set(line)
+    if missing or line['device'] != card:
+        fail(f'bench subprocess: keys {sorted(missing)} missing or device '
+             f'{line.get("device")!r} is not {card!r}')
+    records['bench_subprocess'] = line
+    emit(card, phase='bench', clip=[480, bench.h, bench.w], iters=4,
+         dtype='bfloat16 (TransNet and the UNISAL input)', modes=records,
+         launches=launches, seconds=time.perf_counter() - t_phase)
+    return records, launches
+
+
+def phase_mfu(card, bench, bench_records):
+    """``retargetvid_tpu_torch.mfu`` on the bench models: both targets'
+    counted FLOPs (equal to ``FlopCounterMode``'s), slope ms per forward,
+    TFLOP/s and MFU, and the bench clip's model FLOPs with their share of
+    each one-shot mode's per-clip time (at the peaks)."""
+    from retargetvid_tpu_torch import mfu
+    t_phase = time.perf_counter()
+    rows = [mfu.measure(t, reps=5) for t in (mfu.unisal_target(bench.un),
+                                             mfu.transnet_target(bench.tn))]
+    for row in rows:
+        if row['flops'] != row['counter_flops']:
+            fail(f'mfu: {row["name"]}: counted {row["flops"]} FLOPs, '
+                 f'FlopCounterMode {row["counter_flops"]}')
+        if not 0 < row['mfu'] < 1:
+            fail(f'mfu: {row["name"]}: MFU {row["mfu"]} outside (0, 1)')
+    clip = mfu.clip_flops(bench.un, bench.tn)
+    share = {}
+    for name, rec in bench_records.items():
+        if 'ms_per_clip' in rec:
+            share[name] = (clip[f'clip_{rec["tn_plan"]}_ms_at_peak']
+                           / rec['ms_per_clip'])
+    emit(card, phase='mfu', rows=rows, clip_flops=clip,
+         clip_share_of_peak=share,
+         note='UNISAL: float32 parameters, TF32 convolutions (JAX\'s '
+              'tools/mfu.py computes it in bf16); TransNet bf16',
+         seconds=time.perf_counter() - t_phase)
+
+
 def profile_clip(card, run, out_dir: Path, name: str):
     """``torch.profiler`` over one more clip (``run()``): device busy time
     against the wall time, kernel launches, and the per-operator table
@@ -2498,6 +2634,9 @@ def main():
         phase_train_mesh(card, bench)
     with exact_float32():
         phase_exact(card)
+    bench_records, bench_launches = phase_bench(card, bench)
+    record['launches_by_path'].update(bench_launches)
+    phase_mfu(card, bench, bench_records)
     if 'jax' in sys.modules:
         fail('jax was imported')
     print(json.dumps({'kernels': [record]}))

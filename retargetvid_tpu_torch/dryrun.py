@@ -1,8 +1,11 @@
-"""The multi-device dry run of mesh training and sharded serving.
+"""The single-device forward-step entry and the multi-device dry run of
+mesh training and sharded serving.
 
-Counterpart of ``__graft_entry__.py:dryrun_multichip``: one full UNISAL
-train step on an n-rank (dp, sp, tp) mesh, then the sharded one-shot
-program's swap check.  JAX re-executes itself onto n virtual CPU devices
+Counterparts of ``__graft_entry__.py``: :func:`entry` is the flagship's
+forward step on one device (Lanczos preprocess, static UNISAL, the
+postprocess kernel); :func:`dryrun_multichip` one full UNISAL train step on
+an n-rank (dp, sp, tp) mesh, then the sharded one-shot program's swap
+check.  JAX re-executes itself onto n virtual CPU devices
 when fewer are visible; here, where fewer than n GPUs are visible, the n
 ranks are CPU processes joined over gloo (one process per device, the
 port's process model), else one process per GPU over NCCL.
@@ -24,13 +27,48 @@ from pathlib import Path
 import numpy as np
 import torch
 
-__all__ = ["dryrun_multichip", "mesh_sizes", "TINY_UNISAL"]
+__all__ = ["entry", "dryrun_multichip", "mesh_sizes", "TINY_UNISAL"]
 
 #: ``__graft_entry__.py:_tiny_unisal``: what the dry run checks is the
 #: layout over the mesh, which the channel counts do not change.
 TINY_UNISAL = dict(cnn_widen_factor=0.25, cnn_last_channel=None,
                    rnn_input_channels=32, rnn_hidden_channels=32,
                    smoothing_ksize=11, smoothing_rank=4)
+
+
+def entry(device=None, model=None):
+    """``(fn, example_args)``: the forward step of the flagship, UNISAL in
+    the crop pipeline's configuration, batched over frames.
+
+    ``fn(model, frames)``: (T, H, W, 3) uint8 frames -> Lanczos preprocess
+    to 256x416 -> static UNISAL at SALICON to 140x250 -> per-frame exp and
+    max-normalize to (T, 140, 250) uint8 (the postprocess kernel on the
+    card).  ``example_args``: ``model`` (default: seeded full-width UNISAL)
+    on ``device`` and 8 seeded frames of 140x250 there.  ``device=None``
+    means the GPU.
+    """
+    from retargetvid_tpu_torch.device import resolve_device
+    from retargetvid_tpu_torch.kernels.postprocess import saliency_postprocess
+    from retargetvid_tpu_torch.models.init import seeded_init_
+    from retargetvid_tpu_torch.models.unisal import UNISAL
+    from retargetvid_tpu_torch.pipeline.saliency import preprocess_frames
+
+    device = resolve_device(device)
+    if model is None:
+        model = seeded_init_(UNISAL(), 0)
+    model = model.to(device).eval()
+
+    def fn(model, frames):
+        with torch.inference_mode():
+            x = preprocess_frames(frames, (256, 416))
+            logp = model(x[:, None], target_size=(140, 250),
+                         source='SALICON')
+            return saliency_postprocess(
+                logp[:, 0, :, :, 0].to(torch.float32).contiguous())
+
+    frames = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 255, (8, 140, 250, 3), np.uint8)).to(device)
+    return fn, (model, frames)
 
 
 def mesh_sizes(n: int) -> tuple:

@@ -1,11 +1,12 @@
 """Multi-GPU benchmark execution: clips split over the mesh's dp axis.
 
 Port of ``retargetvid_tpu/parallel/runner.py``.  The benchmark is
-embarrassingly parallel over videos: each dp rank runs one clip of a batch
-(or its share of a frame batch) on its own GPU, with no collective on the
-hot path; the KB-scale outputs are all-gathered at the end
-(``parallel.distributed.global_fetch``), so every rank returns the whole
-batch, as the JAX package's replicated fetch does.  Every rank holds the
+embarrassingly parallel over videos: a batch of k x dp clips gives each dp
+rank the contiguous block of k clips where JAX's ``P('dp')`` puts them (or
+its share of a frame batch), run on its own GPU one clip after another,
+with no collective on the hot path; the KB-scale outputs are all-gathered
+at the end (``parallel.distributed.global_fetch``), so every rank returns
+the whole batch, as the JAX package's replicated fetch does.  Every rank holds the
 batch's host data; ranks that share a dp index (sp or tp above 1) compute
 the same clip.
 
@@ -52,11 +53,22 @@ __all__ = ["ShardedSaliency", "ShardedClipRunner", "ShardedOneShot",
            "raw_clip_signature"]
 
 
-def _check_batch(mesh, items, what: str) -> None:
+def _block(mesh, items, what: str) -> range:
+    """The indices of this rank's clips in a batch of k x dp: the
+    contiguous block ``[r k, (r + 1) k)`` of dp index r."""
     dp = mesh.shape['dp']
-    if len(items) != dp:
-        raise ValueError(f'{what}: a batch holds one clip per dp rank '
-                         f'({dp}), got {len(items)}')
+    if not items or len(items) % dp:
+        raise ValueError(f'{what}: a batch holds k clips per dp rank, a '
+                         f'multiple of dp ({dp}), got {len(items)}')
+    k = len(items) // dp
+    return range(mesh.dp_index * k, (mesh.dp_index + 1) * k)
+
+
+def _gather_blocks(vecs, mesh) -> np.ndarray:
+    """Every rank's k packed vectors, all-gathered: (k x dp, L) in batch
+    order."""
+    stacked = global_fetch(torch.stack(vecs), mesh)
+    return stacked.reshape(-1, stacked.shape[-1])
 
 
 def _pad_rows(x: torch.Tensor, n: int) -> torch.Tensor:
@@ -73,9 +85,9 @@ def _padded(vals, n: int) -> np.ndarray:
 
 
 class ShardedClipRunner:
-    """Whole clips split over dp: each rank runs one clip's post-shot-
-    detection pipeline (gather, saliency, geometry) of a batch whose clips
-    share one bucket signature (:func:`group_clips`).
+    """Whole clips split over dp: each rank runs the post-shot-detection
+    pipeline (gather, saliency, geometry) of its k clips of a batch whose
+    clips share one bucket signature (:func:`group_clips`).
 
     ``un_model`` is a ``UNISAL`` module; ``dtype`` its input's dtype.  It
     runs on the mesh's device.
@@ -93,7 +105,8 @@ class ShardedClipRunner:
     def run_batch(self, clips, crop_params: dict, *, fps: float,
                   h_orig: int, w_orig: int, w_final: int, h_final: int,
                   seg_bucket: Optional[int] = None) -> list:
-        """Run a dp-sized batch of clips sharing one bucket signature.
+        """Run a batch of k x dp clips sharing one bucket signature; this
+        rank runs its block of k (:func:`_block`), one clip after another.
 
         ``clips``: dicts with ``sal_frames`` (T_all, H, W, 3) uint8,
         ``selected``, ``true_inds``, ``segmentation``, ``segmentation_sel``
@@ -101,10 +114,10 @@ class ShardedClipRunner:
         pad to the bucket of the batch's longest, the picks and
         ``true_inds`` (continued ascending) to the bucket of its most picks,
         the segment columns to ``seg_bucket_size`` of its most segments (or
-        ``seg_bucket``).  Returns one dict per clip: ``boxes`` trimmed to
-        its ``fc`` and ``mean_sal``.
+        ``seg_bucket``).  Returns one dict per clip, in input order:
+        ``boxes`` trimmed to its ``fc`` and ``mean_sal``.
         """
-        _check_batch(self.mesh, clips, 'ShardedClipRunner')
+        block = _block(self.mesh, clips, 'ShardedClipRunner')
         cfg = GeometryConfig.from_crop_params(crop_params)
         t_sel_pad = bucket_size(max(len(c['selected']) for c in clips))
         t_out = bucket_size(max(int(c['fc']) for c in clips))
@@ -114,16 +127,6 @@ class ShardedClipRunner:
                                     for c in clips))
         h, w = (int(s) for s in clips[0]['sal_frames'].shape[1:3])
 
-        c = clips[self.mesh.dp_index]
-        n_sel, n_seg = len(c['selected']), len(c['segmentation'])
-        if n_seg > s_pad:
-            raise ValueError(f'{n_seg} segments exceed seg_bucket {s_pad}')
-        ti = _padded(c['true_inds'], t_sel_pad)
-        ti[n_sel:] = ti[n_sel - 1] + np.arange(1, t_sel_pad - n_sel + 1)
-        cols = [_padded(np.asarray(c[key])[:, col], s_pad)
-                for key in ('segmentation', 'segmentation_sel')
-                for col in (0, 1)]
-
         def dev(arr):
             return torch.from_numpy(arr).to(self.device)
 
@@ -132,15 +135,27 @@ class ShardedClipRunner:
             t_border=self.t_border, cfg=cfg, in_hw=(h, w),
             net_hw=get_optimal_out_size((h, w)), t_out=t_out,
             fps=float(fps), h_orig=int(h_orig), w_orig=int(w_orig))
-        with torch.inference_mode():
-            frames = _pad_rows(torch.as_tensor(c['sal_frames']).to(
-                self.device), t_all_pad)
-            vec, spec = pack_clip_outputs(clip_fn(
-                frames, dev(_padded(c['selected'], t_sel_pad)),
-                dev(np.arange(t_sel_pad) < n_sel), n_sel, dev(ti),
-                *(dev(col) for col in cols), n_seg, int(c['fc']),
-                int(w_final), int(h_final)))
-        vecs = global_fetch(vec, self.mesh)
+        vecs = []
+        for c in (clips[i] for i in block):
+            n_sel, n_seg = len(c['selected']), len(c['segmentation'])
+            if n_seg > s_pad:
+                raise ValueError(f'{n_seg} segments exceed seg_bucket '
+                                 f'{s_pad}')
+            ti = _padded(c['true_inds'], t_sel_pad)
+            ti[n_sel:] = ti[n_sel - 1] + np.arange(1, t_sel_pad - n_sel + 1)
+            cols = [_padded(np.asarray(c[key])[:, col], s_pad)
+                    for key in ('segmentation', 'segmentation_sel')
+                    for col in (0, 1)]
+            with torch.inference_mode():
+                frames = _pad_rows(torch.as_tensor(c['sal_frames']).to(
+                    self.device), t_all_pad)
+                vec, spec = pack_clip_outputs(clip_fn(
+                    frames, dev(_padded(c['selected'], t_sel_pad)),
+                    dev(np.arange(t_sel_pad) < n_sel), n_sel, dev(ti),
+                    *(dev(col) for col in cols), n_seg, int(c['fc']),
+                    int(w_final), int(h_final)))
+            vecs.append(vec)
+        vecs = _gather_blocks(vecs, self.mesh)
         results = []
         for i, clip in enumerate(clips):
             out = unpack_clip_outputs(vecs[i], spec)
@@ -150,16 +165,17 @@ class ShardedClipRunner:
 
 
 class ShardedOneShot:
-    """The whole-clip one-shot program, one clip per dp rank.
+    """The whole-clip one-shot program over a batch of k x dp clips.
 
     ``make_oneshot_body`` (resizes, TransNet, sampling and scenes on the
-    device, saliency, geometry) runs on each rank's clip, padded to the
-    batch's frame capacity with its live count as ``n``; the packed output
-    vectors are all-gathered.  Arguments as ``OneShotClipProgram``'s, plus
-    the static-capacity overrides ``fc_bucket`` (frame capacity for batches
-    whose clips all fit it) and ``t_sel_bucket`` (pick capacity); a clip
-    beyond them is flagged like any other overrun.  ``device=None`` means
-    the mesh's device.
+    device, saliency, geometry) runs on each clip of the rank's block of k,
+    one after another, padded to the batch's one frame capacity with its
+    live count as ``n`` (JAX vmaps the body over the block); the packed
+    output vectors are all-gathered.  Arguments as
+    ``OneShotClipProgram``'s, plus the static-capacity overrides
+    ``fc_bucket`` (frame capacity for batches whose clips all fit it) and
+    ``t_sel_bucket`` (pick capacity); a clip beyond them is flagged like
+    any other overrun.  ``device=None`` means the mesh's device.
     """
 
     def __init__(self, mesh, tn_model, un_model, source: str = 'SALICON',
@@ -188,10 +204,11 @@ class ShardedOneShot:
 
     def dispatch_batch(self, raws, crop_params: dict, *, fps: float,
                        w_final: int, h_final: int):
-        """Run this rank's clip of a dp-sized batch up to its packed output
-        vector; returns a ticket for :meth:`collect_batch`.  ``raws``: the
-        whole batch, (fc_i, H, W, 3) uint8 each, one H and W."""
-        _check_batch(self.mesh, raws, 'ShardedOneShot')
+        """Run this rank's k clips of a batch of k x dp up to their packed
+        output vectors; returns a ticket for :meth:`collect_batch`.
+        ``raws``: the whole batch, (fc_i, H, W, 3) uint8 each, one H and
+        W."""
+        block = _block(self.mesh, raws, 'ShardedOneShot')
         fcs = [int(r.shape[0]) for r in raws]
         h, w = int(raws[0].shape[1]), int(raws[0].shape[2])
         if any(tuple(r.shape[1:]) != (h, w, 3) for r in raws):
@@ -213,23 +230,26 @@ class ShardedOneShot:
             t_sel_pad=t_sel_pad, s_pad=self.s_pad, skip=skip,
             fps=float(fps), h_orig=h, w_orig=w, window=self.window,
             stride=self.stride, keep=self.keep, tn_fullseq=self.tn_fullseq)
-        i = self.mesh.dp_index
-        raw = torch.as_tensor(raws[i]).to(self.device)
-        if raw.dtype != torch.uint8:
-            raise ValueError(f'raw frames must be uint8, got {raw.dtype}')
-        with torch.inference_mode():
-            vec, spec = pack_clip_outputs(body(
-                _pad_rows(raw, fc_cap), int(w_final), int(h_final),
-                n=fcs[i]))
-        return vec, spec, fcs, t_sel_pad
+        vecs = []
+        for i in block:
+            raw = torch.as_tensor(raws[i]).to(self.device)
+            if raw.dtype != torch.uint8:
+                raise ValueError(f'raw frames must be uint8, got {raw.dtype}')
+            with torch.inference_mode():
+                vec, spec = pack_clip_outputs(body(
+                    _pad_rows(raw, fc_cap), int(w_final), int(h_final),
+                    n=fcs[i]))
+            vecs.append(vec)
+        return vecs, spec, fcs, t_sel_pad
 
     def collect_batch(self, ticket) -> list:
         """Gather and unpack a :meth:`dispatch_batch` ticket: one outputs
-        dict per clip (``OneShotClipProgram.run``'s keys, boxes trimmed to
-        the clip) with ``overrun`` set where the clip exceeded the static
-        pick or shot bounds; the caller serves those another way."""
-        vec, spec, fcs, t_sel_pad = ticket
-        vecs = global_fetch(vec, self.mesh)
+        dict per clip, in input order (``OneShotClipProgram.run``'s keys,
+        boxes trimmed to the clip) with ``overrun`` set where the clip
+        exceeded the static pick or shot bounds; the caller serves those
+        another way."""
+        vecs, spec, fcs, t_sel_pad = ticket
+        vecs = _gather_blocks(vecs, self.mesh)
         results = []
         for i, fc in enumerate(fcs):
             out = unpack_clip_outputs(vecs[i], spec)
@@ -243,8 +263,9 @@ class ShardedOneShot:
 
     def run_batch(self, raws, crop_params: dict, *, fps: float,
                   w_final: int, h_final: int) -> list:
-        """Run a dp-sized batch of raw clips sharing one signature
-        (:func:`group_raw_clips`); see :meth:`collect_batch`."""
+        """Run a batch of k x dp raw clips sharing one signature
+        (:func:`group_raw_clips` makes dp-sized ones); see
+        :meth:`collect_batch`."""
         return self.collect_batch(self.dispatch_batch(
             raws, crop_params, fps=fps, w_final=w_final, h_final=h_final))
 

@@ -1,18 +1,19 @@
-"""Debug plotting: the center-series signals.
+"""Debug plotting: the center-series signals and the cluster scatter.
 
-Port of ``retargetvid_tpu/utils/plots.py:plot_signals,
-plot_smoothing_preview``, the plots ``smart_vid_crop(plots_fn=...)``
-draws: the 2x2 signal plot of interpolated/smoothed center series with
-shot boundaries (reference ``sc_plot_signals``,
-``smartVidCrop.py:1752-1796``) and the smoothing preview
-(``:2490-2500``).  ``matplotlib`` is imported only when a plot is drawn.
+Port of ``retargetvid_tpu/utils/plots.py``: the plots
+``smart_vid_crop(plots_fn=...)`` draws, the 2x2 signal plot of
+interpolated/smoothed center series with shot boundaries (reference
+``sc_plot_signals``, ``smartVidCrop.py:1752-1796``) and the smoothing
+preview (``:2490-2500``), and the per-frame cluster scatter of the
+clustering filter (``sc_clustering_filt``'s ``plots_fn`` path,
+``:1133-1151``).  ``matplotlib`` is imported only when a plot is drawn.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["plot_signals", "plot_smoothing_preview"]
+__all__ = ["plot_signals", "plot_smoothing_preview", "plot_cluster_scatter"]
 
 
 def _pyplot():
@@ -57,3 +58,22 @@ def plot_smoothing_preview(vid_data: dict, out_fn: str = 'debug_preview.png'):
     fig.savefig(out_fn, bbox_inches='tight')
     plt.close(fig)
 
+
+
+def plot_cluster_scatter(smap_before: np.ndarray, smap_after: np.ndarray,
+                         plots_fn: str) -> None:
+    """Scatter of thresholded pixels, surviving cluster highlighted."""
+    if not plots_fn:
+        return
+    plt = _pyplot()
+    fig = plt.figure()
+    r0, c0 = np.nonzero(np.asarray(smap_before))
+    keep = np.asarray(smap_after)[r0, c0] > 0
+    plt.scatter(c0[~keep], r0[~keep], s=2, label='filtered out')
+    plt.scatter(c0[keep], r0[keep], s=2, label='kept*')
+    plt.legend()
+    plt.xlim(0, smap_before.shape[1])
+    plt.ylim(0, smap_before.shape[0])
+    plt.gca().invert_yaxis()
+    plt.savefig(plots_fn, bbox_inches='tight')
+    plt.close(fig)

@@ -39,7 +39,7 @@ def test_port_imports_no_jax(tmp_path):
                  'train.trainer', 'train.measure', 'eval.saliency_metrics',
                  'parallel', 'parallel.mesh', 'parallel.distributed',
                  'parallel.runner', 'parallel.collectives',
-                 'parallel.shard', 'dryrun'):
+                 'parallel.shard', 'dryrun', 'bench', 'mfu'):
         assert f'retargetvid_tpu_torch.{name}' in mods, name
     code = ('import importlib, sys\n'
             f'for m in {mods!r}: importlib.import_module(m)\n'
@@ -65,6 +65,12 @@ def test_port_imports_no_jax(tmp_path):
             "        sys.exit(f'cli {argv[0]} ran without data')\n"
             # ``cli benchmark --mesh 1 [--oneshot]`` on an empty folder
             # builds the mesh, the models and the runner.
+            # The bench clip's model FLOPs, counted on the meta device.
+            'from retargetvid_tpu_torch import mfu\n'
+            'from retargetvid_tpu_torch.dryrun import TINY_UNISAL\n'
+            'from retargetvid_tpu_torch.models.transnet import TransNetV1\n'
+            'from retargetvid_tpu_torch.models.unisal import UNISAL\n'
+            'mfu.clip_flops(UNISAL(**TINY_UNISAL), TransNetV1(f=2, d=16))\n'
             "for extra in ([], ['--oneshot']):\n"
             "    main(['benchmark', '--videos', 'missing_dir', '--out',\n"
             f"          {str(tmp_path)!r}, '--mesh', '1', '--device',\n"
@@ -170,7 +176,13 @@ def _host_entry_points(tmp_path):
     def unused(*args):
         raise AssertionError('a model ran before the device was resolved')
 
+    from retargetvid_tpu_torch import bench, mfu
+    from retargetvid_tpu_torch.dryrun import entry
+
     return {
+        'bench': bench.main,
+        'mfu': lambda: mfu.main(['--reps', '1']),
+        'dryrun.entry': entry,
         'segment_chunks': lambda: segment_chunks(
             info, [(frames, 0)], cp, unused, unused),
         'ingest_pickle': lambda: ingest_pickle(pkl, cp, unused),
