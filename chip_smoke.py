@@ -112,7 +112,11 @@ and fails (exit code != 0) if any phase fails:
       launch); two spawned gloo ranks on the card at the meshes (2,1,1),
       (1,2,1) and (1,1,2) against the same plain step, each rank's
       first and second step ms and peak allocated bytes above what it
-      held before, beside the plain step's (TF32 off);
+      held before, beside the plain step's (TF32 off); four spawned gloo
+      ranks on the card at (1,4,1) on a DHF1K-shaped (4, 12, 96, 384)
+      batch, whose 3 rows at 1/32 leave the last sp rank without rows,
+      against the plain step on that batch (TF32 off), with the same
+      per-rank numbers;
       ``dryrun.dryrun_multichip(4)`` on four CPU ranks (the
       (1,2,2) train step and the swap check);
   (d) exactness, in float32 with TF32 off, under the ICIP and the ISM
@@ -1135,12 +1139,12 @@ class MemLoader:
         return iter(self.batches)
 
 
-def train_batches(source, n, seed):
-    """``n`` seeded numpy batches of ``source``'s shape, moved to the card:
-    normal frames, saliency normalized to a distribution per frame, 0.5%
-    of pixels fixated."""
+def train_batches(source, n, seed, shape=None):
+    """``n`` seeded numpy batches of ``source``'s shape (or ``shape``),
+    moved to the card: normal frames, saliency normalized to a
+    distribution per frame, 0.5% of pixels fixated."""
     import torch
-    b, t, h, w = TRAIN_SHAPES[source]
+    b, t, h, w = shape or TRAIN_SHAPES[source]
     rng = np.random.default_rng(seed)
     out = []
     for _ in range(n):
@@ -1787,6 +1791,9 @@ def phase_sharded(card, bench, program):
 
 #: The meshes of two ranks sharing the card in the ``train_mesh`` phase.
 TRAIN_MESHES = ((2, 1, 1), (1, 2, 1), (1, 1, 2))
+#: Four ranks on the card: a DHF1K-shaped batch whose 3 rows at 1/32
+#: leave the last sp rank without rows (1, 1, 1, 0).
+ROW_MESH, ROW_SHAPE = (1, 4, 1), (4, 12, 96, 384)
 #: The mesh step against the single-device step, TF32 off: the loss, then
 #: every parameter and statistic (absolute + relative), as the CPU tests.
 MESH_LOSS_RTOL, MESH_ATOL, MESH_RTOL = 1e-5, 1e-5, 1e-4
@@ -1843,12 +1850,13 @@ def trees_apart(got, ref, label):
             'max_abs_diff_at': worst[1]}
 
 
-def mesh_rank_main(rank, store, out_path, tree_path):
-    """One of two ranks on the one card over gloo: for each of
-    ``TRAIN_MESHES`` a mesh trainer from the pickled full tree, one step
-    of the DHF1K batch (TF32 off), the gathered tree (rank 0 keeps it),
-    the step's ms and peak memory, then a second step's ms; pickled to
-    ``out_path``."""
+def mesh_rank_main(rank, world, store, out_path, tree_path, meshes,
+                   shape=None):
+    """One of ``world`` ranks on the one card over gloo: for each of
+    ``meshes`` a mesh trainer from the pickled full tree, one step of the
+    DHF1K batch (of ``shape``; TF32 off), the gathered tree (rank 0 keeps
+    it), the step's ms and peak memory, then a second step's ms; pickled
+    to ``out_path``."""
     import pickle
 
     import torch
@@ -1856,15 +1864,15 @@ def mesh_rank_main(rank, store, out_path, tree_path):
     from retargetvid_tpu_torch.parallel import distributed
     from retargetvid_tpu_torch.parallel.mesh import make_mesh
     from retargetvid_tpu_torch.train.trainer import Trainer
-    distributed.initialize(rank, 2, store, 'gloo', timeout_s=300)
+    distributed.initialize(rank, world, store, 'gloo', timeout_s=300)
     res = {}
     try:
         with open(tree_path, 'rb') as fp:
             tree = pickle.load(fp)
-        batch = train_batches('DHF1K', 1, 20)[0]
+        batch = train_batches('DHF1K', 1, 20, shape)[0]
         with exact_float32():
-            for sizes in TRAIN_MESHES:
-                mesh = make_mesh(2, axis_sizes=sizes, device='cuda:0')
+            for sizes in meshes:
+                mesh = make_mesh(world, axis_sizes=sizes, device='cuda:0')
                 tr = Trainer(device='cuda:0')
                 tr.init_state(variables=tree, mesh=mesh)
                 metrics, ms, peak, base = mesh_step(tr, batch)
@@ -1884,17 +1892,18 @@ def mesh_rank_main(rank, store, out_path, tree_path):
         pickle.dump(res, fp)
 
 
-def spawn_two(target, tmp: Path, *args, timeout=600):
-    """``target(rank, store, out_path, *args)`` on two spawned ranks;
-    their pickled results (fails on a rank that exits with an error or
-    outlives ``timeout``)."""
+def spawn_ranks(target, tmp: Path, world, *args, timeout=600):
+    """``target(rank, world, store, out_path, *args)`` on ``world``
+    spawned ranks; their pickled results (fails on a rank that exits with an
+    error or outlives ``timeout``)."""
     import multiprocessing
     import pickle
     ctx = multiprocessing.get_context('spawn')
-    outs = [tmp / f'{target.__name__}{r}.pkl' for r in range(2)]
+    name = f'{target.__name__}_{world}'
+    outs = [tmp / f'{name}.rank{r}.pkl' for r in range(world)]
     procs = [ctx.Process(target=target, args=(
-        r, f'file://{tmp / (target.__name__ + ".store")}', str(outs[r]),
-        *args)) for r in range(2)]
+        r, world, f'file://{tmp / (name + ".store")}', str(outs[r]), *args))
+        for r in range(world)]
     for p in procs:
         p.start()
     deadline = time.monotonic() + timeout
@@ -1905,9 +1914,34 @@ def spawn_two(target, tmp: Path, *args, timeout=600):
             p.kill()
             p.join()
     codes = [p.exitcode for p in procs]
-    if codes != [0, 0] or not all(o.exists() for o in outs):
-        fail(f'{target.__name__}: the two ranks exited with {codes}')
+    if codes != [0] * world or not all(o.exists() for o in outs):
+        fail(f'{name}: the ranks exited with {codes}')
     return [pickle.loads(o.read_bytes()) for o in outs]
+
+
+def gloo_ranks_record(ranks, meshes, single, single_peak, what):
+    """Per mesh: every rank's coordinates, step ms and peak bytes, and
+    rank 0's gathered tree against the plain step ``single`` (fails
+    outside the ``MESH_*`` bounds or where the ranks' metrics differ)."""
+    out = {}
+    for sizes in meshes:
+        rs = [r[sizes] for r in ranks]
+        label = 'x'.join(map(str, sizes))
+        if any(r['metrics'] != rs[0]['metrics'] for r in rs):
+            fail(f'train_mesh {label}: the ranks report different metrics')
+        out[label] = {
+            'coords': [r['coords'] for r in rs],
+            'tp_split_weights': rs[0]['tp_split_weights'],
+            'first_step_ms': [r['ms'] for r in rs],
+            'second_step_ms': [r['warm_ms'] for r in rs],
+            'max_memory_allocated_per_rank': [r['max_memory_allocated']
+                                              for r in rs],
+            'peak_bytes_per_rank': [r['peak_bytes'] for r in rs],
+            'peak_over_single': [r['peak_bytes'] / single_peak
+                                 for r in rs],
+            **trees_apart((rs[0]['metrics'], rs[0]['tree']), single,
+                          f'{what} {label}')}
+    return out
 
 
 def phase_train_mesh(card, bench):
@@ -1924,6 +1958,7 @@ def phase_train_mesh(card, bench):
     from retargetvid_tpu_torch.kernels.postprocess import saliency_postprocess
     from retargetvid_tpu_torch.parallel import distributed
     from retargetvid_tpu_torch.parallel.mesh import make_mesh
+    from retargetvid_tpu_torch.parallel.shard import split_rows
     from retargetvid_tpu_torch.train.trainer import Trainer
     t_phase = time.perf_counter()
     tmp = Path(tempfile.mkdtemp(prefix='chip_smoke_train_mesh_'))
@@ -1945,7 +1980,13 @@ def phase_train_mesh(card, bench):
         single_peak = single_max - base
         single = (single_m, plain._flax_tree())
         single_warm_ms = mesh_step(plain, batch, seed=8)[1]
-        del plain
+        plain = fresh()
+        row_batch = train_batches('DHF1K', 1, 20, ROW_SHAPE)[0]
+        row_m, row_ms, row_max, row_base = mesh_step(plain, row_batch)
+        row_single_peak = row_max - row_base
+        row_single = (row_m, plain._flax_tree())
+        row_warm_ms = mesh_step(plain, row_batch, seed=8)[1]
+        del plain, row_batch
     distributed.initialize(0, 1, f'file://{tmp / "world1.store"}', 'nccl',
                            timeout_s=300)
     try:
@@ -1979,26 +2020,14 @@ def phase_train_mesh(card, bench):
 
     with open(tmp / 'tree.pkl', 'wb') as fp:
         pickle.dump(tree, fp)
-    ranks = spawn_two(mesh_rank_main, tmp, str(tmp / 'tree.pkl'))
-    two = {}
-    for sizes in TRAIN_MESHES:
-        r0, r1 = ranks[0][sizes], ranks[1][sizes]
-        label = 'x'.join(map(str, sizes))
-        if r0['metrics'] != r1['metrics']:
-            fail(f'train_mesh {label}: the ranks report different metrics')
-        two[label] = {
-            'coords': [r0['coords'], r1['coords']],
-            'tp_split_weights': r0['tp_split_weights'],
-            'first_step_ms': [r0['ms'], r1['ms']],
-            'second_step_ms': [r0['warm_ms'], r1['warm_ms']],
-            'max_memory_allocated_per_rank': [r0['max_memory_allocated'],
-                                              r1['max_memory_allocated']],
-            'peak_bytes_per_rank': [r0['peak_bytes'], r1['peak_bytes']],
-            'peak_over_single': [r['peak_bytes'] / single_peak
-                                 for r in (r0, r1)],
-            **trees_apart((r0['metrics'], r0['tree']), single,
-                          f'two gloo ranks {label}')}
-    del ranks
+    two = gloo_ranks_record(
+        spawn_ranks(mesh_rank_main, tmp, 2, str(tmp / 'tree.pkl'),
+                    TRAIN_MESHES), TRAIN_MESHES, single, single_peak,
+        'two gloo ranks')
+    four = gloo_ranks_record(
+        spawn_ranks(mesh_rank_main, tmp, 4, str(tmp / 'tree.pkl'),
+                    (ROW_MESH,), ROW_SHAPE), (ROW_MESH,), row_single,
+        row_single_peak, 'four gloo ranks')
     dry = dryrun_multichip(4, timeout_s=300.0)
     shutil.rmtree(tmp, ignore_errors=True)
     emit(card, phase='train_mesh', model='UNISAL full width, bn_train, '
@@ -2020,6 +2049,17 @@ def phase_train_mesh(card, bench):
                               'peak_bytes': single_peak,
                               'metrics': single_m},
          two_rank_gloo=two,
+         four_rank_gloo_rows={
+             'batch': list(ROW_SHAPE),
+             # Five halvings keep the rows r % 32 == 0 of [s, e).
+             'rows_per_sp_rank_at_1_32': [
+                 -(-e // 32) + (-s // 32)
+                 for s, e in split_rows(ROW_SHAPE[2], ROW_MESH[1])],
+             'single_step_float32': {'first_step_ms': row_ms,
+                                     'second_step_ms': row_warm_ms,
+                                     'peak_bytes': row_single_peak,
+                                     'metrics': row_m},
+             **four},
          tolerance={'metrics_rel': MESH_LOSS_RTOL, 'atol': MESH_ATOL,
                     'rtol': MESH_RTOL},
          dryrun_multichip_4=dry, run_inference_launches=launches,

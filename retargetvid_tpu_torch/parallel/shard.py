@@ -14,7 +14,13 @@ outside mesh training, where every layer runs its single-device code):
   row starts its selection one row in) and a resize's output level is the
   encoder's level of that height, so skip connections line up.  Levels
   whose rows do not split evenly (224 rows reach 7 at 1/32: 4 + 3) keep
-  uneven shards; nothing is padded.  A 3x3 conv fetches the neighbours'
+  uneven shards; nothing is padded.  A level may leave a rank no rows at
+  all (64 rows over sp=4 reach 2 at 1/32: 1, 0, 1, 0): that rank holds a
+  ``(..., 0, W)`` shard, every op gives it a ``(..., 0, W')`` result that
+  autograd still reaches (a conv runs on zero rows extended to one
+  window and keeps none of its output), and it takes part in every
+  exchange of the level, forward and backward, sending the rows its
+  neighbours fetch from it.  A 3x3 conv fetches the neighbours'
   boundary rows (zeros beyond the global edges), a resize fetches the rows
   its taps read (clamped at the global edges, as the single-device
   matrices are), the smoothing fetches ``ksize // 2`` rows of edge-
@@ -98,6 +104,22 @@ def _even_rows(parts) -> tuple:
     return tuple(((s + 1) // 2, (e + 1) // 2) for s, e in parts)
 
 
+def _conv_rows(x, w, bias, stride, padding, dilation, groups):
+    """``F.conv2d`` (``padding`` and ``dilation`` as pairs), also where
+    ``x`` holds fewer rows than one window of ``w`` spans (a shard without
+    rows at its level, with its halo): then a ``(N, O, 0, W')`` result,
+    computed from ``x`` extended by zero rows to one window and cut to
+    none, so that autograd still reaches ``x`` (and the exchanges that
+    fetched its rows) and gives it a zero gradient."""
+    short = (dilation[0] * (w.shape[2] - 1) + 1 - 2 * padding[0]
+             - x.shape[-2])
+    if short <= 0:
+        return F.conv2d(x, w, bias, stride, padding, dilation, groups)
+    y = F.conv2d(F.pad(x, (0, 0, 0, short)), w, bias, stride, padding,
+                 dilation, groups)
+    return y[..., :0, :]
+
+
 def conv2d(conv, x):
     """``conv(x)``, or its sharded form under the current shard."""
     shard = current()
@@ -111,8 +133,9 @@ class ModelShard:
     its rows are split over sp (``Trainer._shard_batch`` splits them when
     sp divides the height; otherwise the sp ranks hold whole frames and
     compute alike).  Built per batch from ``mesh.groups``.  A level too
-    short to give every sp rank a row raises (XLA pads such shards; the
-    port does not run them).
+    short to give every sp rank a row leaves some ranks an empty shard
+    (see the module docstring); the step's result is the single-device
+    one all the same.
     """
 
     def __init__(self, mesh, height: int, rows_split: bool):
@@ -142,10 +165,6 @@ class ModelShard:
 
     def at(self, h: int) -> 'ModelShard':
         """Make ``h`` the current level."""
-        parts = self.parts(h)
-        if any(e <= s for s, e in parts):
-            raise ValueError(f'{h} rows leave an sp rank of {self.sp.size} '
-                             f'without rows: {parts}')
         self.level = h
         return self
 
@@ -235,11 +254,11 @@ class ModelShard:
             x = self.halo(x, ph)
             if sh > 1:          # the first output row this shard owns
                 x = x[..., -(-s // sh) * sh - s:, :]
-            y = F.conv2d(x, w, conv_bias, (sh, sw), (0, pw),
-                         conv.dilation, groups)
+            y = _conv_rows(x, w, conv_bias, (sh, sw), (0, pw),
+                           conv.dilation, groups)
         else:
-            y = F.conv2d(x, w, conv_bias, conv.stride, conv.padding,
-                         conv.dilation, groups)
+            y = _conv_rows(x, w, conv_bias, conv.stride, conv.padding,
+                           conv.dilation, groups)
         if tp_split:
             y = gather_over(y, 1, self.tp)
             if bias is not None:
@@ -284,8 +303,11 @@ class ModelShard:
         max and the sum of exponentials reduced over sp."""
         if not self.split:
             return None
-        m = all_reduce(x.detach().amax(dim=(-2, -1), keepdim=True), self.sp,
-                       torch.distributed.ReduceOp.MAX)
+        if x.shape[-2] * x.shape[-1]:
+            m = x.detach().amax(dim=(-2, -1), keepdim=True)
+        else:                           # no rows here: MAX's identity
+            m = x.new_full((*x.shape[:-2], 1, 1), float('-inf'))
+        m = all_reduce(m, self.sp, torch.distributed.ReduceOp.MAX)
         z = x - m
         s = sum_over(torch.exp(z).sum(dim=(-2, -1), keepdim=True), self.sp)
         return z - torch.log(s)

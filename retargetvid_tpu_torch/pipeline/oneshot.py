@@ -16,8 +16,7 @@ scene_bounds_device, make_oneshot_body, OneShotClipProgram``:
 
 A clip with more shots than ``s_pad`` is refused; the two-dispatch path
 (``models.transnet.IngestShotProgram`` or ``TransNetPredictor``, host
-sampling and scenes, ``pipeline.fused.FusedClipProgram``) serves it.  The
-dynamic (ConvGRU) saliency branch is not ported yet.
+sampling and scenes, ``pipeline.fused.FusedClipProgram``) serves it.
 """
 
 from __future__ import annotations

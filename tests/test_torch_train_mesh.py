@@ -13,8 +13,10 @@ rank holds half of each split weight's output channels, and of its trace;
 the same step without the gradient clip (a clipped step cannot see a
 gradient scaled as a whole, so this is where each leaf's gradient shows),
 two ``fit_epoch`` steps within 1e-2 (JAX's trajectory bound); a batch
-that dp does not divide raises.  The 8-rank (2,2,2) case, JAX's own mesh,
-is in the ``mesh`` tier.
+that dp does not divide raises.  The (1,4,1) mesh at H=64 and H=96 leaves
+sp ranks without rows at 1/32 (1, 0, 1, 0 and 1, 1, 1, 0 rows).  The
+8-rank (2,2,2) case, JAX's own mesh, and (1,8,1) at DHF1K's training
+height 224 (1/32: seven rows over eight ranks) are in the ``mesh`` tier.
 
 This module imports neither JAX nor the JAX package, so its rank functions
 run in spawned ranks free of them (``test_torch_parallel_mesh.run_ranks``).
@@ -195,11 +197,17 @@ def single(tree):
 
 
 CASES = [(s, 64) for s in MESHES] + [((1, 2, 1), 96)]
+#: Meshes whose 1/32 level leaves sp ranks without rows: 2 rows over 4
+#: ranks at H=64 (1, 0, 1, 0), 3 at H=96 (1, 1, 1, 0).
+ROW_CASES = [((1, 4, 1), 64), ((1, 4, 1), 96)]
 
 
-@pytest.mark.parametrize('sizes, h', CASES,
-                         ids=[f'{"x".join(map(str, s))}-h{h}'
-                              for s, h in CASES])
+def case_ids(cases):
+    return [f'{"x".join(map(str, s))}-h{h}' for s, h in cases]
+
+
+@pytest.mark.parametrize('sizes, h', CASES + ROW_CASES,
+                         ids=case_ids(CASES + ROW_CASES))
 def test_mesh_step_matches_single_device(sizes, h, tree, single, tmp_path):
     world = int(np.prod(sizes))
     res = ok_results(run_ranks(train_rank, world, tmp_path, sizes, tree,
@@ -241,14 +249,26 @@ def test_indivisible_batch_raises():
         tr._shard_batch(np.zeros((3, 2, 64, 64, 3), np.float32))
 
 
-@pytest.mark.mesh
-def test_mesh_222_matches_single_device(tree, single, tmp_path):
-    """JAX's own mesh, (2, 2, 2) on 8 ranks."""
-    res = ok_results(run_ranks(train_rank, 8, tmp_path, (2, 2, 2), tree,
-                               make_batch(64), timeout=600.0))
-    ref_m, ref_tree, ref_unclipped = single(64)
+def assert_eight_ranks_match(sizes, h, tree, single, tmp_path):
+    res = ok_results(run_ranks(train_rank, 8, tmp_path, sizes, tree,
+                               make_batch(h), timeout=600.0))
+    ref_m, ref_tree, ref_unclipped = single(h)
     for r, out in enumerate(res):
         assert_metrics_close(out['metrics'], ref_m, f'rank {r}')
         assert_trees_close(out['tree'], ref_tree, f'rank {r}')
         assert_trees_close(out['tree_unclipped'], ref_unclipped,
                            f'rank {r} unclipped')
+
+
+@pytest.mark.mesh
+def test_mesh_222_matches_single_device(tree, single, tmp_path):
+    """JAX's own mesh, (2, 2, 2) on 8 ranks."""
+    assert_eight_ranks_match((2, 2, 2), 64, tree, single, tmp_path)
+
+
+@pytest.mark.mesh
+def test_mesh_181_at_dhf1k_height_matches_single_device(tree, single,
+                                                        tmp_path):
+    """(1, 8, 1) at DHF1K's training height, 224 (64 columns): its 7
+    rows at 1/32 leave the last of the 8 sp ranks without rows."""
+    assert_eight_ranks_match((1, 8, 1), 224, tree, single, tmp_path)

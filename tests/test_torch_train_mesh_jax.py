@@ -35,6 +35,7 @@ from test_torch_train_mesh import (
     TINY,
     assert_metrics_close,
     assert_trees_close,
+    case_ids,
     fixed_mask,
     flax_trace,
     make_batch,
@@ -92,10 +93,7 @@ def test_masks_are_the_trainer_tests_masks():
                                       jax_tests_mask(shape, keep))
 
 
-@pytest.mark.parametrize('sizes, h', CASES,
-                         ids=[f'{"x".join(map(str, s))}-h{h}'
-                              for s, h in CASES])
-def test_mesh_step_matches_jax(sizes, h, tree, jax_step, tmp_path):
+def assert_mesh_step_matches_jax(sizes, h, tree, jax_step, tmp_path):
     world = int(np.prod(sizes))
     res = ok_results(run_ranks(train_rank, world, tmp_path, sizes, tree,
                                make_batch(h, SEED[h]), 'fixed', False,
@@ -105,6 +103,11 @@ def test_mesh_step_matches_jax(sizes, h, tree, jax_step, tmp_path):
         label = f'mesh {sizes} h={h} rank {r}'
         assert_metrics_close(out['metrics'], ref_m, label)
         assert_trees_close(out['tree'], ref_tree, label)
+
+
+@pytest.mark.parametrize('sizes, h', CASES, ids=case_ids(CASES))
+def test_mesh_step_matches_jax(sizes, h, tree, jax_step, tmp_path):
+    assert_mesh_step_matches_jax(sizes, h, tree, jax_step, tmp_path)
 
 
 def test_tp_checkpoint_reloads_in_both_packages(tree, tmp_path):
