@@ -1,0 +1,9 @@
+"""``cluster_ms``: the median over the traced window's clips of the program's
+span ``geometry.cluster`` (inside ``geometry``; CUDA events), ms."""
+
+import statistics
+
+
+def read(rec):
+    times = rec['stages'].get('geometry.cluster')
+    return statistics.median(times) if times else None

@@ -1,0 +1,10 @@
+"""``interpolate_ms``: the median over the traced window's clips of the
+program's span ``geometry.interpolate`` (inside ``geometry``; CUDA events),
+ms."""
+
+import statistics
+
+
+def read(rec):
+    times = rec['stages'].get('geometry.interpolate')
+    return statistics.median(times) if times else None

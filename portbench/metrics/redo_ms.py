@@ -1,0 +1,9 @@
+"""``redo_ms``: the median over the traced window's clips of the program's
+span ``geometry.redo`` (inside ``geometry``; CUDA events), ms."""
+
+import statistics
+
+
+def read(rec):
+    times = rec['stages'].get('geometry.redo')
+    return statistics.median(times) if times else None

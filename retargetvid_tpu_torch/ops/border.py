@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import torch
 
+from retargetvid_tpu_torch.utils import timing
+
 __all__ = ["border_detection", "mean_saliency", "coverage_score"]
 
 
@@ -20,6 +22,7 @@ def _leading_below(profile: torch.Tensor, t_border: int) -> torch.Tensor:
     above)."""
     above = profile > t_border
     n = torch.tensor(profile.shape[0], device=profile.device)
+    timing.count('dispatch_syncs')          # the upload of n
     return torch.where(above.any(), torch.argmax(above.to(torch.uint8)), n)
 
 

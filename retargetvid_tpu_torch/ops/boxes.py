@@ -12,6 +12,8 @@ import math
 
 import torch
 
+from retargetvid_tpu_torch.utils import timing
+
 __all__ = ["calc_dest_size", "compute_crop_boxes", "shift_time"]
 
 
@@ -38,6 +40,8 @@ def calc_dest_size(w_orig: int, h_orig: int, out_ratio: str) -> dict:
 
 
 def _i32(v, device):
+    if not torch.is_tensor(v):
+        timing.count('dispatch_syncs')      # an upload from the host
     return torch.as_tensor(v, dtype=torch.int32, device=device)
 
 

@@ -34,6 +34,7 @@ from retargetvid_tpu_torch.ops.resize import (
     resize_by_factor,
     round_half_up,
 )
+from retargetvid_tpu_torch.utils import timing
 
 __all__ = ["connected_components", "filter_frames", "clustering_filter"]
 
@@ -78,7 +79,9 @@ def connected_components(mask: torch.Tensor, n_iters: int = 12):
     bg_t = torch.tensor(bg, dtype=torch.int32, device=mask.device)
     labels = torch.where(mask, flat_idx, bg_t)
     reset = ~mask
+    sweeps = 0
     for _ in range(n_iters):
+        sweeps += 1
         new = torch.where(mask, torch.minimum(labels, _min_pool3(labels, big)),
                           bg_t)
         new = _segmented_cummin(new, reset, 2, big)
@@ -91,6 +94,9 @@ def connected_components(mask: torch.Tensor, n_iters: int = 12):
         if torch.equal(new, labels):
             break
         labels = new
+    # The label upload and each sweep's torch.equal wait for the device.
+    timing.count('ccl_sweeps', sweeps)
+    timing.count('dispatch_syncs', 1 + sweeps)
     return labels
 
 
@@ -154,6 +160,7 @@ def filter_frames(smaps: torch.Tensor, *, min_cluster_size: int,
         link_mask = mask
     labels = connected_components(link_mask, n_iters=cc_iters)
     n_px_t = torch.tensor(n_px, dtype=torch.int32, device=smaps.device)
+    timing.count('dispatch_syncs')          # the upload of n_px
     labels = torch.where(mask, labels, n_px_t).reshape(t, n_px).to(
         torch.int64)
     vals = torch.clamp(smaps.reshape(t, n_px), 0, 255).to(torch.int64)

@@ -32,6 +32,8 @@ import numpy as np
 import torch
 from torch.nn import functional as F
 
+from retargetvid_tpu_torch.utils import timing
+
 __all__ = ["butter_lowpass_filter", "savgol_smooth", "loess_smooth",
            "smooth_segments"]
 
@@ -181,6 +183,7 @@ def savgol_smooth(x: torch.Tensor, n: torch.Tensor, window: torch.Tensor,
     in_bank = (win >= first) & (win <= window_bank[-1]) & (win % 2 == 1)
     bi = torch.clamp(torch.div(win - first, 2, rounding_mode='floor'), 0,
                      len(window_bank) - 1)[:, 0]
+    timing.count('dispatch_syncs', 3)      # three uploads from the host
     coeffs = torch.from_numpy(c_np).to(dev)[bi]                  # (B, W)
     head = torch.from_numpy(h_np).to(dev)[bi]                   # (B, H, W)
     tail = torch.from_numpy(t_np).to(dev)[bi]
@@ -304,15 +307,18 @@ def smooth_segments(dxi: torch.Tensor, dyi: torch.Tensor,
                          torch.zeros_like(series))
     cl2, window2 = cl.repeat(2), window.repeat(2)
     if lp_filt:
-        low = butter_lowpass_filter(series, cl2, lp_cutoff, fps, lp_order)
+        with timing.span('geometry.lowpass'):
+            low = butter_lowpass_filter(series, cl2, lp_cutoff, fps,
+                                        lp_order)
     else:
         low = series
-    if loess_filt:
-        sm = loess_smooth(low, cl2, window2, degree,
-                          max_window=max(w_static, 5))
-    else:
-        sm = savgol_smooth(low, cl2, window2, degree,
-                           tuple(range(5, max(w_static, 5) + 1, 2)))
+    with timing.span('geometry.loess'):
+        if loess_filt:
+            sm = loess_smooth(low, cl2, window2, degree,
+                              max_window=max(w_static, 5))
+        else:
+            sm = savgol_smooth(low, cl2, window2, degree,
+                               tuple(range(5, max(w_static, 5) + 1, 2)))
     sm = torch.where((cl2 < 10)[:, None], low, sm)
 
     mask = (seg_mask & live[:, None]).repeat(2, 1)

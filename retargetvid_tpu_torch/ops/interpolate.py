@@ -14,6 +14,8 @@ from __future__ import annotations
 
 import torch
 
+from retargetvid_tpu_torch.utils import timing
+
 __all__ = ["interpolate_segments"]
 
 _K = 2          # quadratic
@@ -81,6 +83,7 @@ def _quadratic_spline(xs, ys, n, x_eval, max_n):
     basis = _bsplvb(t, ii, xs)                           # (S, max_n, 3)
     rows = torch.arange(max_n, device=xs.device)
     offs = torch.tensor([2, 1, 0], device=xs.device)
+    timing.count('dispatch_syncs')          # the upload of offs
     cols = torch.clamp(ii[..., None] - offs, 0, max_n - 1)
     live = rows[None, :] < n[:, None]                    # (S, max_n)
     mat = torch.zeros((s, max_n, max_n), dtype=xs.dtype, device=xs.device)

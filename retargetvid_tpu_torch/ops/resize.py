@@ -22,6 +22,8 @@ import functools
 import numpy as np
 import torch
 
+from retargetvid_tpu_torch.utils import timing
+
 __all__ = ["resize", "resize_by_factor", "apply_taps", "factor_dst_size",
            "round_half_up", "RESIZE_TYPE_TO_METHOD"]
 
@@ -184,6 +186,7 @@ def apply_taps(x: torch.Tensor, dim: int, idx_np: np.ndarray,
     """``sum_k x[idx[k]] * w[k]`` along ``dim`` in ascending k, each
     product rounded to float32 before it is added (``_resize_axis``'s
     arithmetic); ``idx``/``w`` (K, dst) index ``x``'s own positions."""
+    timing.count('dispatch_syncs', 2)      # idx and w, from the host
     idx = torch.from_numpy(np.ascontiguousarray(idx_np)).to(x.device)
     dst = idx.shape[1]
     shape = [1] * x.ndim

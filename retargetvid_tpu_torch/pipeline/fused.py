@@ -12,7 +12,6 @@ series runs once and only the crop-box tail runs per ratio.
 
 from __future__ import annotations
 
-import contextlib
 from typing import Optional, Tuple
 
 import numpy as np
@@ -32,6 +31,7 @@ from retargetvid_tpu_torch.pipeline.saliency import (
     get_optimal_out_size,
     preprocess_frames,
 )
+from retargetvid_tpu_torch.utils import timing
 
 __all__ = ["make_clip_fn", "pack_clip_outputs", "unpack_clip_outputs",
            "FusedClipProgram", "RATIO_KEYS"]
@@ -45,30 +45,28 @@ RATIO_KEYS = ('boxes', 'dx', 'dy', 'dxs', 'dys', 'dxi', 'dyi', 'jumps',
 def make_clip_fn(model, *, source: str, dtype, t_border: int,
                  cfg: GeometryConfig, in_hw: Tuple[int, int],
                  net_hw: Tuple[int, int], t_out: int, fps: float,
-                 h_orig: int, w_orig: int, stage=None):
+                 h_orig: int, w_orig: int):
     """The per-clip body over the clip's device tensors.
 
     ``dtype`` is the saliency input's dtype (the JAX bench path feeds
     UNISAL bf16).  ``w_final``/``h_final`` are ints for one output ratio
     or equal-length sequences for R ratios; then the outputs in
     :data:`RATIO_KEYS` get a leading R axis, as the JAX package's vmapped
-    tail gives them.  ``stage(name)``, if given, is a context manager that
-    brackets the UNISAL, postprocess and geometry stages (timing).
+    tail gives them.  The UNISAL and geometry stages are spans of the
+    active ``utils.timing.StageTimer``, if any.
     """
-    stage = stage or (lambda name: contextlib.nullcontext())
 
     def fn(sal_frames, sel_idx, sel_mask, fc_sel, true_inds,
            seg_starts, seg_ends, seg_sel_starts, seg_sel_ends,
            n_segments, fc, w_final, h_final):
         del fc                              # carried for signature parity
-        with stage('unisal'):
+        with timing.span('unisal'):
             sel = sal_frames[sel_idx]
             x = preprocess_frames(sel, net_hw).to(dtype)
             logp = model(x[:, None], target_size=in_hw, source=source)
-        with stage('postprocess'):
-            smaps = saliency_postprocess(
-                logp[:, 0, :, :, 0].to(torch.float32).contiguous())
-        with stage('geometry'):
+        smaps = saliency_postprocess(
+            logp[:, 0, :, :, 0].to(torch.float32).contiguous())
+        with timing.span('geometry'):
             smaps = smaps.to(torch.float32)
             smaps = torch.where(sel_mask[:, None, None], smaps,
                                 torch.zeros_like(smaps))
@@ -156,7 +154,7 @@ class FusedClipProgram:
         self.source = source
         self.dtype = dtype
         self.t_border = t_border
-        #: Optional ``pipeline.oneshot.StageTimer`` (CUDA devices only).
+        #: Optional ``utils.timing.StageTimer``, active during each run.
         self.timer = None
 
     def run(self, sal_frames, selected, true_inds, segmentation,
@@ -183,14 +181,12 @@ class FusedClipProgram:
         def dev(arr):
             return torch.from_numpy(arr).to(self.device)
 
-        stage = self.timer.stage if self.timer is not None else None
         clip_fn = make_clip_fn(
             self.un_model, source=self.source, dtype=self.dtype,
             t_border=self.t_border, cfg=cfg, in_hw=(h, w),
             net_hw=get_optimal_out_size((h, w)), t_out=t_out,
-            fps=float(fps), h_orig=int(h_orig), w_orig=int(w_orig),
-            stage=stage)
-        with torch.inference_mode():
+            fps=float(fps), h_orig=int(h_orig), w_orig=int(w_orig))
+        with timing.active(self.timer, self.device), torch.inference_mode():
             vec, spec = pack_clip_outputs(clip_fn(
                 sal, dev(sel_idx), dev(sel_mask), t_sel, dev(ti),
                 *(dev(c) for c in seg_cols), len(segmentation), int(fc),

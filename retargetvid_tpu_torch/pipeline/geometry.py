@@ -47,6 +47,7 @@ from retargetvid_tpu_torch.ops.temporal import (
     freeze_unstable_segments,
 )
 from retargetvid_tpu_torch.ops.threshold import threshold_saliency
+from retargetvid_tpu_torch.utils import timing
 
 __all__ = ["GeometryConfig", "geometry_pipeline", "geometry_series",
            "geometry_boxes", "run_geometry", "pad_clip_tables", "bucket_size",
@@ -169,6 +170,10 @@ def _cut_boundary_fixup(raw: torch.Tensor, pass1: torch.Tensor,
     needs_redo = torch.cat([false1, avg_here[:-1]])
     k_cap = int(min(3 * (max_cuts + 1), t))
     redo = torch.nonzero(needs_redo)[:k_cap, 0].tolist()
+    # nonzero waits for its count, tolist for the indices (none to copy
+    # when there are none).
+    timing.count('dispatch_syncs', 1 + bool(redo))
+    timing.count('redo_frames', len(redo))
 
     acc = pass1.clone()
     prev_idx, prev_out = -2, None
@@ -198,13 +203,17 @@ def geometry_series(smaps, sel_mask, fc_sel, true_inds,
     smaps = smaps.to(torch.float32)
     t_sel_pad = smaps.shape[0]
     dev = smaps.device
+    # A live count still on the device is read back: one sync each.
+    timing.count('dispatch_syncs',
+                 torch.is_tensor(fc_sel) + torch.is_tensor(n_segments))
     fc_sel = int(fc_sel)
     n_segments = int(n_segments)
 
     sm = threshold_saliency(smaps, cfg.t_threshold)
 
     if cfg.clust_filt:
-        pass1 = _refilter(sm, cfg)
+        with timing.span('geometry.cluster'):
+            pass1 = _refilter(sm, cfg)
         # Cut mask over selected frames: live segment starts + last frame.
         live_seg = torch.arange(seg_sel_starts.shape[0], device=dev) \
             < n_segments
@@ -212,9 +221,13 @@ def geometry_series(smaps, sel_mask, fc_sel, true_inds,
                              t_sel_pad - 1)
         hits = torch.zeros((t_sel_pad,), dtype=torch.int32, device=dev)
         cut_mask = hits.index_add_(0, starts, live_seg.to(torch.int32)) > 0
+        # Setting one element uploads the host's True: one sync.
         cut_mask[min(max(fc_sel - 1, 0), t_sel_pad - 1)] = True
-        sm = _cut_boundary_fixup(sm, pass1, cut_mask, fc_sel, cfg,
-                                 max_cuts=int(seg_sel_starts.shape[0]) + 1)
+        timing.count('dispatch_syncs')
+        with timing.span('geometry.redo'):
+            sm = _cut_boundary_fixup(
+                sm, pass1, cut_mask, fc_sel, cfg,
+                max_cuts=int(seg_sel_starts.shape[0]) + 1)
 
     cx, cy, valid = center_of_mass(sm, km=cfg.com_km,
                                    factor=cfg.resize_factor)
@@ -237,17 +250,20 @@ def geometry_series(smaps, sel_mask, fc_sel, true_inds,
             sm, cx, cy, min_d_jump=cfg.min_d_jump), jumps)
         is_jump = (jumps < cfg.foces_stab_t) & sel_mask \
             & (torch.arange(t_sel_pad, device=dev) >= 1)
+        jump_inds = torch.nonzero(is_jump)[:, 0].tolist()
+        timing.count('dispatch_syncs', 1 + bool(jump_inds))
         cx, cy = freeze_unstable_segments(
-            cx, cy, torch.nonzero(is_jump)[:, 0].tolist(), fc_sel=fc_sel,
-            skip=cfg.skip, fps=fps, stab_secs=cfg.foces_stab_s)
+            cx, cy, jump_inds, fc_sel=fc_sel, skip=cfg.skip, fps=fps,
+            stab_secs=cfg.foces_stab_s)
 
     max_samples, max_len = t_sel_pad, t_out
-    dxi = interpolate_segments(cx, true_inds, seg_starts, seg_ends,
-                               seg_sel_starts, seg_sel_ends, n_segments,
-                               t_out, max_samples, max_len)
-    dyi = interpolate_segments(cy, true_inds, seg_starts, seg_ends,
-                               seg_sel_starts, seg_sel_ends, n_segments,
-                               t_out, max_samples, max_len)
+    with timing.span('geometry.interpolate'):
+        dxi = interpolate_segments(cx, true_inds, seg_starts, seg_ends,
+                                   seg_sel_starts, seg_sel_ends, n_segments,
+                                   t_out, max_samples, max_len)
+        dyi = interpolate_segments(cy, true_inds, seg_starts, seg_ends,
+                                   seg_sel_starts, seg_sel_ends, n_segments,
+                                   t_out, max_samples, max_len)
 
     dxs, dys, dxl, dyl = smooth_segments(
         dxi, dyi, seg_starts, seg_ends, n_segments,

@@ -21,7 +21,6 @@ sampling and scenes, ``pipeline.fused.FusedClipProgram``) serves it.
 
 from __future__ import annotations
 
-import contextlib
 from typing import Optional
 
 import numpy as np
@@ -42,6 +41,8 @@ from retargetvid_tpu_torch.pipeline.fused import (
 from retargetvid_tpu_torch.pipeline.ingest import _resize_kernel
 from retargetvid_tpu_torch.pipeline.geometry import GeometryConfig, bucket_size
 from retargetvid_tpu_torch.pipeline.saliency import get_optimal_out_size
+from retargetvid_tpu_torch.utils import timing
+from retargetvid_tpu_torch.utils.timing import StageTimer
 
 __all__ = ["OneShotClipProgram", "StageTimer", "sample_frames_device",
            "scene_bounds_device", "make_oneshot_body"]
@@ -91,7 +92,9 @@ def sample_frames_device(probs: torch.Tensor, skip: int, fc: int,
     sel_idx = _first_true(sel_mask, t_sel_pad, fc - 1)
     sel_idx = torch.clamp(sel_idx, max=max(n - 1, 0))
     k = torch.arange(t_sel_pad, device=dev)
+    # Indexing by a 0-d device tensor reads it back: one sync.
     last_ti = sel_idx[torch.clamp(fc_sel - 1, 0, t_sel_pad - 1)]
+    timing.count('dispatch_syncs')
     ti = torch.where(k < fc_sel, sel_idx, last_ti + (k - fc_sel + 1))
     return sel_mask, sel_idx, fc_sel, ti
 
@@ -134,36 +137,12 @@ def scene_bounds_device(probs: torch.Tensor, sel_mask: torch.Tensor,
     return starts, ends, safe(starts), safe(ends), n_seg
 
 
-class StageTimer:
-    """CUDA-event timing of the program's stages (``transnet``, ``unisal``,
-    ``postprocess``, ``geometry``).  Assign one to
-    ``OneShotClipProgram.timer``; read :meth:`times_ms` after the run."""
-
-    def __init__(self):
-        self.events = {}
-
-    @contextlib.contextmanager
-    def stage(self, name: str):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        yield
-        end.record()
-        self.events.setdefault(name, []).append((start, end))
-
-    def times_ms(self) -> dict:
-        torch.cuda.synchronize()
-        return {k: [s.elapsed_time(e) for s, e in v]
-                for k, v in self.events.items()}
-
-
 def make_oneshot_body(un_model, tn_model, *, source, dtype, t_border,
                       cfg: GeometryConfig, fc: int, sal_hw, net_hw,
                       t_out: int, t_sel_pad: int, s_pad: int, skip: int,
                       fps: float, h_orig: int, w_orig: int,
                       window: int = 100, stride: int = 50,
-                      keep: tuple = (25, 75), tn_fullseq: bool = False,
-                      stage=None):
+                      keep: tuple = (25, 75), tn_fullseq: bool = False):
     """Whole-clip body ``(raw, w_final, h_final, n=None) -> dict``; the
     targets are ints for one ratio or equal-length sequences for R ratios.
 
@@ -174,18 +153,17 @@ def make_oneshot_body(un_model, tn_model, *, source, dtype, t_border,
     :class:`OneShotClipProgram` (``n == fc``) and
     ``parallel.runner.ShardedOneShot``, which pads the clips of a batch to
     one capacity."""
-    stage = stage or (lambda name: contextlib.nullcontext())
     sal_h, sal_w = sal_hw
     clip_fn = make_clip_fn(
         un_model, source=source, dtype=dtype, t_border=t_border, cfg=cfg,
         in_hw=(sal_h, sal_w), net_hw=net_hw, t_out=t_out, fps=fps,
-        h_orig=h_orig, w_orig=w_orig, stage=stage)
+        h_orig=h_orig, w_orig=w_orig)
     resize = _resize_kernel(h_orig, w_orig, sal_h, sal_w)
 
     def body(raw, w_final, h_final, n=None):
         dev = raw.device
         n = fc if n is None else int(n)
-        with stage('transnet'):
+        with timing.span('transnet'):
             tn, sal = resize(raw)
             if tn_fullseq:
                 probs = fullseq_forward(tn_model, tn, n, fc, keep=keep)
@@ -247,7 +225,7 @@ class OneShotClipProgram:
         self.stride = stride
         self.keep = keep
         self.tn_fullseq = tn_fullseq
-        #: Optional :class:`StageTimer` (CUDA devices only).
+        #: Optional :class:`StageTimer`, active during each dispatch.
         self.timer: Optional[StageTimer] = None
 
     def _t_sel_pad(self, fc: int, skip: int) -> int:
@@ -263,7 +241,6 @@ class OneShotClipProgram:
         sal_hw = sal_dims(w, h, crop_params['max_input_d'])
         cfg = GeometryConfig.from_crop_params(crop_params)
         skip = int(crop_params['skip'])
-        stage = self.timer.stage if self.timer is not None else None
         body = make_oneshot_body(
             self.un_model, self.tn_model, source=self.source,
             dtype=self.dtype, t_border=self.t_border, cfg=cfg, fc=fc,
@@ -271,8 +248,8 @@ class OneShotClipProgram:
             t_out=bucket_size(fc), t_sel_pad=self._t_sel_pad(fc, skip),
             s_pad=self.s_pad, skip=skip, fps=float(fps), h_orig=h,
             w_orig=w, window=self.window, stride=self.stride,
-            keep=self.keep, tn_fullseq=self.tn_fullseq, stage=stage)
-        with torch.inference_mode():
+            keep=self.keep, tn_fullseq=self.tn_fullseq)
+        with timing.active(self.timer, self.device), torch.inference_mode():
             vec, spec = pack_clip_outputs(body(raw, w_final, h_final))
         return vec, spec, fc, skip
 

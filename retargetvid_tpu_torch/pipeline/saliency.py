@@ -11,7 +11,6 @@ on the card is the hand-written saliency-postprocess kernel.
 
 from __future__ import annotations
 
-import contextlib
 from typing import Optional, Tuple
 
 import torch
@@ -19,6 +18,7 @@ import torch
 from retargetvid_tpu_torch.device import resolve_device
 from retargetvid_tpu_torch.kernels.postprocess import saliency_postprocess
 from retargetvid_tpu_torch.ops.resize import resize, round_half_up
+from retargetvid_tpu_torch.utils import timing
 from retargetvid_tpu_torch.utils.sequence import smooth_sequence
 
 __all__ = ["get_optimal_out_size", "preprocess_frames", "SaliencyPredictor",
@@ -49,6 +49,7 @@ def preprocess_frames(frames: torch.Tensor,
     """uint8 (B, H, W, 3) -> normalised float32 (B, h, w, 3)."""
     x = resize(frames, out_size, 'lanczos', channels_last=True)
     x = torch.clamp(round_half_up(x), 0, 255) / 255.0
+    timing.count('dispatch_syncs', 2)      # mean and std, from the host
     mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32,
                         device=frames.device)
     std = torch.tensor(IMAGENET_STD, dtype=torch.float32,
@@ -65,8 +66,8 @@ class SaliencyPredictor:
     ``chunk`` (a ragged tail is padded with its last frame and trimmed), one
     postprocess kernel launch per chunk on the card.  ``predict_video`` is
     the dynamic (ConvGRU) mode.  ``device=None`` means the GPU.  A
-    ``timer`` (``pipeline.oneshot.StageTimer``) times ``predict_video``'s
-    stages.
+    ``timer`` (``utils.timing.StageTimer``) is active during each
+    ``predict_video`` call.
     """
 
     def __init__(self, model, source: str = 'SALICON', chunk: int = 32,
@@ -77,10 +78,6 @@ class SaliencyPredictor:
         self.chunk = chunk
         self.dtype = dtype
         self.timer = None
-
-    def _stage(self, name: str):
-        return (self.timer.stage(name) if self.timer is not None
-                else contextlib.nullcontext())
 
     def predict_video(self, frames, *, source: str = 'DHF1K',
                       frame_modulo: int = 4, seq_len: int = 6,
@@ -95,15 +92,16 @@ class SaliencyPredictor:
         the whole (T, H, W) stack.
 
         (T, H, W, 3) uint8 frames (numpy or a tensor) -> (T, H, W) uint8
-        numpy maps.  Stages: ``chunks``, ``smooth``, ``postprocess``.
+        numpy maps.  Stage: ``chunks``.
         """
         frames = torch.as_tensor(frames).to(self.device)
         t, h, w, _ = frames.shape
         net_hw = get_optimal_out_size((h, w))
-        with torch.inference_mode():
+        with timing.active(self.timer, self.device), \
+                torch.inference_mode():
             logps = torch.empty((t, h, w), dtype=torch.float32,
                                 device=self.device)
-            with self._stage('chunks'):
+            with timing.span('chunks'):
                 for offset in range(min(frame_modulo, t)):
                     seq = frames[offset::frame_modulo]
                     out = logps[offset::frame_modulo]
@@ -120,10 +118,8 @@ class SaliencyPredictor:
                             static=False, h0=h0)
                         out[s:s + n] = logp[0, :n, :, :, 0]
             if smooth_method is not None:
-                with self._stage('smooth'):
-                    logps = smooth_sequence(logps, smooth_method)
-            with self._stage('postprocess'):
-                maps = saliency_postprocess(logps)
+                logps = smooth_sequence(logps, smooth_method)
+            maps = saliency_postprocess(logps)
         return maps.cpu().numpy()
 
     def predict(self, frames, return_device: bool = False):
