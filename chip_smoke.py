@@ -27,12 +27,26 @@ and fails (exit code != 0) if any phase fails:
       the host's enqueue in it; ``plain_ms`` is the plain version timed as
       ``ms_device``; the source stack is timed cold only (it is larger
       than the L2), over 10 launches per graph, cycling two 442 MB inputs;
+  (b2) filtfilt kernel vs plain version: ``kernels/filtfilt.py:
+      butter_filtfilt`` at the bench clip's (16, 512) low-pass input under
+      the ICIP design (order 5, cutoff 2, 30 fps: 3 sections, padlen 18),
+      on seeded random walks with live lengths 480, 1, padlen, padlen + 1,
+      L - 1 and L: 0 differing values allowed.  ``ms_device_warm`` from
+      the CUDA-graph timer on one input, ``ms_device`` with a 64 MB write
+      between launches (past the 50 MB L2) less that write's own time,
+      ``ms_call``, the plain version's device time (a CUDA graph of its
+      ~49,300 launches) and per call, and the latency bound of the state
+      update that carries from step to step: 2 passes x (3 dependent
+      float32 operations x N steps + 2 per section to fill the cascade)
+      x 4 cycles at the card's maximum SM clock;
   (c) main path: ``OneShotClipProgram.run`` with the full-sequence
       TransNet plan on the synthetic 480x360x640 clip of ``bench.py``
       (30 fps, 1:3 ratio), full-width TransNetV1 and UNISAL with seeded
       random weights, bf16; warm-up on seed 100, median of seeds 0..3,
       per-stage CUDA-event times; boxes checked against the frame and the
-      destination size; the kernel's launches counted (one per clip);
+      destination size; the kernels' launches counted (one of each per
+      clip) and the counter ``lowpass_kernel_rows`` (x and y of every
+      padded segment per clip);
   (e) windowed plan: the same with the 100/50 TransNet window plan (the
       program's default); the picks and shots must equal the main path's;
   (g) multi-ratio: ``dispatch_multi`` serving 1:3 and 3:1 from one pass
@@ -166,7 +180,8 @@ time, idle share, kernel launches, the postprocess kernel's own device
 time; the per-operator tables go to ``DIR/profile_<phase>.txt``).
 
 Each phase prints one JSON line carrying the card's name and power limit;
-then a line with every kernel's record (with its launches on each path),
+then a line with every kernel's record (with its launches on each path:
+``butter_filtfilt``'s read wherever the postprocess kernel's are),
 the ``nvidia-smi`` name/power-limit line, and last ``{"ok": true,
 "device": {...}}``.  Without a GPU, or
 without the repository beside it, it exits with an error and prints no
@@ -465,6 +480,114 @@ def kernel_bound(shape):
             'bytes' if by_bytes >= by_ops else 'operations', moved)
 
 
+#: The bench clip's low-pass input: x and y of 8 padded segments, 512 frames.
+FILTFILT_SHAPE = (16, 512)
+#: The ICIP preset's (lp_cutoff, fps, lp_order).
+FILTFILT_DESIGN = (2.0, 30.0, 5)
+#: Latency of a dependent float32 add or multiply on Hopper, cycles.
+FP32_LATENCY_CYCLES = 4
+#: Dependent float32 ops of a section's state update per step.
+STATE_CHAIN_OPS = 3
+
+
+def filtfilt_inputs(seed, padlen):
+    """Seeded centre-like random walks on the card, (16, 512), with live
+    lengths 480 (the bench clip's one segment), 1 (padding rows), padlen,
+    padlen + 1, L - 1 and L."""
+    import torch
+    b, L = FILTFILT_SHAPE
+    rng = np.random.default_rng(seed)
+    x = 320.0 + np.cumsum(rng.normal(0, 3, (b, L)), axis=1)
+    lengths = (480, 1, 1, padlen, padlen + 1, L - 1, L, 1)
+    n = np.asarray([lengths[(r + seed) % len(lengths)] for r in range(b)])
+    return (torch.from_numpy(x.astype(np.float32)).cuda(),
+            torch.from_numpy(n.astype(np.int64)).cuda())
+
+
+def sm_clock_mhz():
+    """The card's maximum and current SM clocks (MHz)."""
+    line = subprocess.run(
+        ['nvidia-smi', '--query-gpu=clocks.max.sm,clocks.sm',
+         '--format=csv,noheader,nounits'], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    top, now = (float(v) for v in line.split(','))
+    return top, now
+
+
+def phase_filtfilt(card):
+    import torch
+
+    from retargetvid_tpu_torch.kernels.filtfilt import (
+        butter_filtfilt,
+        butter_filtfilt_reference,
+        launch_plan,
+    )
+    from retargetvid_tpu_torch.ops.filters import _butter_design
+    padlen, sections = _butter_design(*FILTFILT_DESIGN)
+    b, L = FILTFILT_SHAPE
+    inputs = [filtfilt_inputs(seed, padlen) for seed in range(6)]
+    launches_before = butter_filtfilt.launches
+    n_diff = 0
+    for x, n in inputs:
+        got = butter_filtfilt(x, n, padlen, sections)
+        want = butter_filtfilt_reference(x, n, padlen, sections)
+        torch.cuda.synchronize()
+        n_diff += int((got.view(torch.int32) != want.view(torch.int32)).sum())
+    if butter_filtfilt.launches != launches_before + len(inputs):
+        fail('filtfilt kernel: not one launch per call')
+    if n_diff:
+        fail(f'filtfilt kernel: {n_diff} values differ from the plain '
+             f'version')
+
+    def kernel(xn):
+        return butter_filtfilt(xn[0], xn[1], padlen, sections)
+
+    def plain(xn):
+        return butter_filtfilt_reference(xn[0], xn[1], padlen, sections)
+
+    # 64 MB written between launches evicts the 50 MB L2; its own time is
+    # taken alone and subtracted.
+    flush = torch.empty(16 * 2 ** 20, device='cuda')
+    with_flush = device_ms(lambda xn: (flush.zero_(), kernel(xn)), inputs)
+    flush_ms = device_ms(lambda xn: flush.zero_(), inputs)
+    del flush
+    ms_warm = device_ms(kernel, inputs[:1])
+    ms_call = call_ms(lambda: kernel(inputs[0]))
+    plain_ms = device_ms(plain, inputs[:1], n=1, reps=3)
+    plain_ms_call = call_ms(lambda: plain(inputs[0]), n=3)
+    top_mhz, now_mhz = sm_clock_mhz()
+    # The state update s0' = (m00*s0 + m01*s1) + v0*x carries from step to
+    # step: 3 dependent ops per step whatever the section count, plus the
+    # output's 2 ops per section once per pass as the cascade fills.
+    steps = L + 2 * padlen
+    fill_ops = 2 * len(sections)
+    bound_ms = ((STATE_CHAIN_OPS * steps + fill_ops) * FP32_LATENCY_CYCLES
+                * 2) / (top_mhz * 1e3)
+    rec = {'name': 'butter_filtfilt', 'route': 'cuda',
+           'source': 'retargetvid_tpu_torch/csrc/butter_filtfilt.cu',
+           'replaces': 'none (the JAX package runs an XLA scan); the '
+                       'port\'s plain op chain, kernels/filtfilt.py:'
+                       'butter_filtfilt_reference',
+           'shape': list(FILTFILT_SHAPE), 'design': list(FILTFILT_DESIGN),
+           'sections': len(sections), 'padlen': padlen,
+           'plan': launch_plan(b, L, padlen)._asdict(),
+           'n_values': len(inputs) * b * L, 'n_diff': n_diff,
+           'tolerance': '0 (bit-equal)',
+           'ms_device': with_flush - flush_ms, 'ms_device_warm': ms_warm,
+           'flush_ms': flush_ms, 'ms_call': ms_call, 'plain_ms': plain_ms,
+           'plain_ms_call': plain_ms_call, 'bound_ms': bound_ms,
+           'bound_by': f'latency of the state update: 2 passes x '
+                       f'({STATE_CHAIN_OPS} dependent float32 ops x {steps} '
+                       f'steps + {fill_ops} to fill the cascade) x '
+                       f'{FP32_LATENCY_CYCLES} cycles at {top_mhz:g} MHz',
+           'bound_share': bound_ms / ms_warm,
+           'sm_clock_mhz': {'max': top_mhz, 'now': now_mhz},
+           'library_ms': None,
+           'launches_in_phase': butter_filtfilt.launches - launches_before}
+    emit(card, phase='filtfilt', **rec)
+    return rec
+
+
 def build_models(seed=0):
     """The bench's seeded full-width models, TransNet's head biased as
     bench.py does (random weights fire a "cut" on every frame), so sampling
@@ -533,10 +656,42 @@ class Bench:
             fail('non-finite smoothed centers')
 
 
-def drive(run, warm, clips, program=None):
-    """``run`` on the warm-up clip, then on each clip with the kernel's
-    launch count set to 0 just before and read just after: per-clip ms,
-    outputs, launches and, with ``program``, its median stage times."""
+#: ``butter_filtfilt`` launches on each path, read where the postprocess
+#: kernel's count is read: the filtfilt record's ``launches_by_path``.
+FILTFILT_LAUNCHES = {}
+
+
+def zero_launches():
+    """Set both kernels' launch counts to 0, before a path's run."""
+    from retargetvid_tpu_torch.kernels.filtfilt import butter_filtfilt
+    from retargetvid_tpu_torch.kernels.postprocess import saliency_postprocess
+    saliency_postprocess.launches = 0
+    butter_filtfilt.launches = 0
+
+
+def note_filtfilt(path):
+    """Add the filtfilt launches since :func:`zero_launches` to ``path``'s
+    count."""
+    from retargetvid_tpu_torch.kernels.filtfilt import butter_filtfilt
+    FILTFILT_LAUNCHES[path] = (FILTFILT_LAUNCHES.get(path, 0)
+                               + butter_filtfilt.launches)
+
+
+def expect_filtfilt(path, cp, n):
+    """One filtfilt launch per clip on ``path`` where ``cp`` low-passes,
+    none where it does not."""
+    want = n if cp['lp_filt'] else 0
+    got = FILTFILT_LAUNCHES.get(path, 0)
+    if got != want:
+        fail(f'{path}: {got} butter_filtfilt launches for {n} clips '
+             f'(expected {want}: one per clip where lp_filt is on)')
+
+
+def drive(run, warm, clips, path, program=None):
+    """``run`` on the warm-up clip, then on each clip with the kernels'
+    launch counts set to 0 just before and read just after (the filtfilt
+    count noted under ``path``): per-clip ms, outputs, postprocess
+    launches and, with ``program``, its median stage times."""
     import torch
 
     from retargetvid_tpu_torch.kernels.postprocess import saliency_postprocess
@@ -545,7 +700,7 @@ def drive(run, warm, clips, program=None):
     timer = StageTimer()
     if program is not None:
         program.timer = timer
-    saliency_postprocess.launches = 0
+    zero_launches()
     times, outs = [], []
     for clip in clips:
         torch.cuda.synchronize()
@@ -553,6 +708,7 @@ def drive(run, warm, clips, program=None):
         outs.append(run(clip))
         times.append((time.perf_counter() - t0) * 1e3)
     launches = saliency_postprocess.launches
+    note_filtfilt(path)
     if program is not None:
         program.timer = None
     stages = {k: statistics.median(v) for k, v in timer.times_ms().items()}
@@ -602,8 +758,13 @@ def phase_main_path(card, bench, profile_dir=None):
                                  tn_fullseq=True)
     times, outs, launches, stages = drive(
         lambda c: program.run(c, bench.cp, **bench.kw), bench.warm,
-        bench.clips, program)
+        bench.clips, 'main_path', program)
     expect_launches('main path', launches, len(bench.clips))
+    expect_filtfilt('main_path', bench.cp, len(bench.clips))
+    rows = stages.get('lowpass_kernel_rows', 0)
+    if rows != 2 * program.s_pad:
+        fail(f'main path: lowpass_kernel_rows {rows} per clip, expected '
+             f'{2 * program.s_pad} (x and y of {program.s_pad} segments)')
     for out in outs:
         bench.check(out)
     med = statistics.median(times)
@@ -612,7 +773,8 @@ def phase_main_path(card, bench, profile_dir=None):
          median_ms=med, frames_per_s=480 / med * 1e3,
          fc_sel=[o['fc_sel'] for o in outs],
          n_segments=[o['n_segments'] for o in outs],
-         stage_median_ms=stages, postprocess_launches=launches)
+         stage_median_ms=stages, postprocess_launches=launches,
+         filtfilt_launches=FILTFILT_LAUNCHES['main_path'])
     if profile_dir is not None:
         profile_clip(card, lambda: program.run(bench.clips[0], bench.cp,
                                                **bench.kw),
@@ -631,8 +793,9 @@ def phase_ism(card, bench, profile_dir=None):
                                  tn_fullseq=True)
     times, outs, launches, stages = drive(
         lambda c: program.run(c, cp, **bench.kw), bench.warm, bench.clips,
-        program)
+        'ism_main_path', program)
     expect_launches('ISM main path', launches, len(bench.clips))
+    expect_filtfilt('ism_main_path', cp, len(bench.clips))
     for out in outs:
         bench.check(out)
     med = statistics.median(times)
@@ -642,7 +805,8 @@ def phase_ism(card, bench, profile_dir=None):
          fc_sel=[o['fc_sel'] for o in outs],
          n_segments=[o['n_segments'] for o in outs],
          **focus_stats(outs, cp, bench.fps), boxes_in_frame_at_dest=True,
-         stage_median_ms=stages, postprocess_launches=launches)
+         stage_median_ms=stages, postprocess_launches=launches,
+         filtfilt_launches=FILTFILT_LAUNCHES['ism_main_path'])
     if profile_dir is not None:
         profile_clip(card, lambda: program.run(bench.clips[0], cp,
                                                **bench.kw),
@@ -659,8 +823,9 @@ def phase_windowed(card, bench, main_outs, main_stages):
         fail('the one-shot program does not default to the window plan')
     times, outs, launches, stages = drive(
         lambda c: program.run(c, bench.cp, **bench.kw), bench.warm,
-        bench.clips, program)
+        bench.clips, 'windowed_plan', program)
     expect_launches('windowed plan', launches, len(bench.clips))
+    expect_filtfilt('windowed_plan', bench.cp, len(bench.clips))
     for out, main in zip(outs, main_outs):
         bench.check(out)
         if (out['fc_sel'], out['n_segments']) != (main['fc_sel'],
@@ -712,11 +877,13 @@ def phase_multi_ratio(card, bench, program, cp=None, phase='multi_ratio'):
         for name in order:
             program.timer = timer if name == 'multi' else None
             torch.cuda.synchronize()
-            saliency_postprocess.launches = 0
+            zero_launches()
             t0 = time.perf_counter()
             outs[name].append((multi if name == 'multi' else runs)(clip))
             ms[name].append((time.perf_counter() - t0) * 1e3)
             launches[name] += saliency_postprocess.launches
+            if name == 'multi':
+                note_filtfilt(phase)
     program.timer = None
     expect_launches(phase, launches['multi'], len(bench.clips))
     expect_launches(f'{phase}, two runs', launches['runs'],
@@ -815,7 +982,7 @@ def phase_two_dispatch(card, bench, cp=None, phase='two_dispatch'):
     two_dispatch(warm, cp, kw, resize, fused, profile, real)
     timer = StageTimer()
     fused.timer = timer
-    saliency_postprocess.launches = 0
+    zero_launches()
     outs, shots, parts = [], [], []
     for clip in clips:
         out, n_seg, ms = two_dispatch(clip, cp, kw, resize, fused,
@@ -824,6 +991,7 @@ def phase_two_dispatch(card, bench, cp=None, phase='two_dispatch'):
         shots.append(n_seg)
         parts.append(ms)
     launches = saliency_postprocess.launches
+    note_filtfilt(phase)
     fused.timer = None
     expect_launches(phase, launches, len(clips))
     if shots != [12] * len(clips):
@@ -920,7 +1088,7 @@ def phase_crop_stream(card, bench, cp=None, phase='crop_stream',
                                                           'stream')
         for name in order:
             torch.cuda.synchronize()
-            saliency_postprocess.launches = 0
+            zero_launches()
             t0 = time.perf_counter()
             if name == 'stream':
                 vd, res, times = stream(frames)
@@ -928,6 +1096,8 @@ def phase_crop_stream(card, bench, cp=None, phase='crop_stream',
                 oneshot(clip)
             ms[name].append((time.perf_counter() - t0) * 1e3)
             launches[name].append(saliency_postprocess.launches)
+            if name == 'stream':
+                note_filtfilt(phase)
         check_boxes(np.asarray(vd['bbs']), bench.dest, bench.h, bench.w)
         if res['result'] != 'smart cropped':
             fail(f'{phase}: result {res["result"]!r}')
@@ -988,12 +1158,13 @@ def phase_cli_crop_pickle(card, bench):
                          'trans_inds': trans_inds}, fp)
         for preset, extra in (('icip', []), ('ism', ['--best-settings'])):
             out = Path(tmp) / f'out_{preset}'
-            saliency_postprocess.launches = 0
+            zero_launches()
             t0 = time.perf_counter()
             cli.main(['crop', str(pkl), '--ratio', '1:3', '--save-vid',
                       '--out', str(out)] + extra)
             wall = time.perf_counter() - t0
             launches = saliency_postprocess.launches
+            note_filtfilt('cli_crop_pickle')
             total += launches
             expect_chunk_launches(f'cli_crop_pickle {preset}', launches,
                                   picks)
@@ -1071,13 +1242,15 @@ def phase_predict_video(card, bench, profile_dir=None):
             for mode in order:
                 predictor.timer = StageTimer()
                 torch.cuda.synchronize()
-                saliency_postprocess.launches = 0
+                zero_launches()
                 chunks[0] = 0
                 t0 = time.perf_counter()
                 maps = predictor.predict_video(clip,
                                                smooth_method=modes[mode])
                 ms[mode].append((time.perf_counter() - t0) * 1e3)
                 launches[mode].append(saliency_postprocess.launches)
+                note_filtfilt('predict_video' if mode == 'none'
+                              else f'predict_video_{mode}')
                 n_chunks[mode].append(chunks[0])
                 stages[mode].append({k: v[0] for k, v in
                                      predictor.timer.times_ms().items()})
@@ -1347,13 +1520,15 @@ def phase_train(card, bench, profile_dir=None):
         t0 = time.perf_counter()
         tr.run_inference(frames, source=source)
         ms[f'{label}_maps'] = (time.perf_counter() - t0) * 1e3
-        saliency_postprocess.launches = 0
+        zero_launches()
         t0 = time.perf_counter()
         maps, inf_scores = tr.run_inference(frames, source=source,
                                             sal=sal[:len(frames)],
                                             fix=fix[:len(frames)])
         ms[f'{label}_maps_and_scores'] = (time.perf_counter() - t0) * 1e3
         launches[label] = saliency_postprocess.launches
+        note_filtfilt('train_run_inference' if label == 'dynamic'
+                      else 'train_run_inference_static')
         want = 1 if label == 'dynamic' else -(-len(frames) // 32)
         if launches[label] != want:
             fail(f'train run_inference {label}: {launches[label]} kernel '
@@ -1494,11 +1669,12 @@ def clip_structure(clip, cp, resize, profile):
             'segmentation_sel': scenes_to_selected(seg, m2o), 'fc': fc}
 
 
-def in_turns(runs, clips):
+def in_turns(runs, clips, path=None):
     """Each of ``runs`` (name -> fn(clip)) on each clip, the order flipped
     every clip, a synchronised host clock around each; the kernel's launches
-    of each run counted from 0.  Returns per-run ms lists, outputs and
-    launch totals."""
+    of each run counted from 0 (with ``path``, the ``sharded`` run's
+    filtfilt launches noted under it).  Returns per-run ms lists, outputs
+    and launch totals."""
     import torch
 
     from retargetvid_tpu_torch.kernels.postprocess import saliency_postprocess
@@ -1509,12 +1685,14 @@ def in_turns(runs, clips):
     for i, clip in enumerate(clips):
         for name in (names if i % 2 == 0 else names[::-1]):
             torch.cuda.synchronize()
-            saliency_postprocess.launches = 0
+            zero_launches()
             t0 = time.perf_counter()
             outs[name].append(runs[name](clip))
             torch.cuda.synchronize()
             ms[name].append((time.perf_counter() - t0) * 1e3)
             launches[name] += saliency_postprocess.launches
+            if path is not None and name == 'sharded':
+                note_filtfilt(path)
     return ms, outs, launches
 
 
@@ -1589,6 +1767,7 @@ def two_rank_main(rank, store, out_path, clips, cp, kw):
 
     import torch
 
+    from retargetvid_tpu_torch.kernels.filtfilt import butter_filtfilt
     from retargetvid_tpu_torch.kernels.postprocess import saliency_postprocess
     from retargetvid_tpu_torch.parallel import distributed
     from retargetvid_tpu_torch.parallel.mesh import make_mesh
@@ -1603,10 +1782,11 @@ def two_rank_main(rank, store, out_path, clips, cp, kw):
         res = {'coords': mesh.coords, 'device': str(mesh.device),
                'backend': torch.distributed.get_backend()}
         for name, batch in (('batch', clips), ('swapped', clips[::-1])):
-            saliency_postprocess.launches = 0
+            zero_launches()
             res[name] = runner.run_batch(batch, cp, **kw)
             torch.cuda.synchronize()
             res[f'{name}_launches'] = saliency_postprocess.launches
+            res[f'{name}_filtfilt_launches'] = butter_filtfilt.launches
     finally:
         distributed.shutdown()
     with open(out_path, 'wb') as fp:
@@ -1665,6 +1845,9 @@ def two_rank_check(clips, cp, kw, tmp: Path):
             'launches_per_rank_per_batch': [
                 [res['batch_launches'], res['swapped_launches']]
                 for res in ranks],
+            'filtfilt_launches_per_rank_per_batch': [
+                [res['batch_filtfilt_launches'],
+                 res['swapped_filtfilt_launches']] for res in ranks],
             'fc': [int(c.shape[0]) for c in clips],
             'fc_sel': [o['fc_sel'] for o in world1],
             'n_segments': [o['n_segments'] for o in world1],
@@ -1738,7 +1921,7 @@ def phase_sharded(card, bench, program):
         rec, launches = {}, {}
         for path, (fns, data) in runs.items():
             ms, outs, n = in_turns(fns, data[:1])           # warm-up
-            ms, outs, n = in_turns(fns, data[1:])
+            ms, outs, n = in_turns(fns, data[1:], f'sharded_{path}')
             launches[path] = n['sharded']
             rec[path] = {f'{k}_per_run_ms': v for k, v in ms.items()}
             rec[path].update({f'{k}_median_ms': statistics.median(v)
@@ -1782,6 +1965,8 @@ def phase_sharded(card, bench, program):
          saliency_per_chip=sal_runner.per_chip, runs=rec,
          exact_float32=exact, two_rank_gloo=two, launches=launches,
          seconds=time.perf_counter() - t_phase)
+    FILTFILT_LAUNCHES['sharded_two_rank_per_rank'] = sum(
+        two['filtfilt_launches_per_rank_per_batch'][0])
     return {'sharded_oneshot': launches['oneshot'],
             'sharded_clip_runner': launches['clip_runner'],
             'sharded_saliency': launches['saliency'],
@@ -2006,10 +2191,11 @@ def phase_train_mesh(card, bench):
                 ms[k].append(mesh_step(tr, batch, seed=i)[1])
         ms = {k: v[1:] for k, v in ms.items()}            # warm-up out
         clip = bench.clips[0]
-        saliency_postprocess.launches = 0
+        zero_launches()
         maps, _ = trainers['mesh'].run_inference(clip, source='DHF1K')
         torch.cuda.synchronize()
         launches = saliency_postprocess.launches
+        note_filtfilt('train_mesh_run_inference')
         if launches != 1 or maps.shape != tuple(clip.shape[:3]):
             fail(f'train_mesh run_inference: {launches} launches, maps '
                  f'{maps.shape}')
@@ -2108,10 +2294,11 @@ def phase_bench(card, bench):
     records, launches, outputs = {}, {}, {}
     for name, (kw, want) in BENCH_MODES.items():
         torch.cuda.synchronize()
-        saliency_postprocess.launches = 0
+        zero_launches()
         result, outs = run_bench(bench.tn, bench.un, clip_fn=clip_fn, **kw)
         torch.cuda.synchronize()
         launches[name] = saliency_postprocess.launches
+        note_filtfilt(name)
         if launches[name] != want:
             fail(f'{name}: {launches[name]} saliency_postprocess launches, '
                  f'expected {want} (one per clip)')
@@ -2640,6 +2827,7 @@ def main():
     card = card_line()
     phase_build(card)
     record = phase_kernel(card)
+    filtfilt_record = phase_filtfilt(card)
     bench = Bench()
     program, main_outs, main_stages, launches = phase_main_path(
         card, bench, args.profile)
@@ -2679,7 +2867,8 @@ def main():
     phase_mfu(card, bench, bench_records)
     if 'jax' in sys.modules:
         fail('jax was imported')
-    print(json.dumps({'kernels': [record]}))
+    filtfilt_record['launches_by_path'] = FILTFILT_LAUNCHES
+    print(json.dumps({'kernels': [record, filtfilt_record]}))
     print(card)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

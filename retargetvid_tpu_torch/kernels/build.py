@@ -7,8 +7,10 @@ Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own:
 
 The library lands in ``build/kernels/`` at the repository root (ignored by
 git), named by a hash of its source and flags, so an edited source builds
-anew.  Building happens at first use; ``build_all`` starts one ``nvcc`` per
-source at once.  A missing ``nvcc`` or a failed build raises: nothing falls
+anew.  Building happens at first use: the first library loaded builds every
+missing one, as ``build_all`` does, one ``nvcc`` per source started at
+once, so a fresh checkout waits for one compile, not one per kernel.  A
+missing ``nvcc`` or a failed build raises: nothing falls
 back to the plain PyTorch versions.
 """
 
@@ -30,7 +32,8 @@ BUILD_DIR = Path(__file__).resolve().parent.parent.parent / 'build' / 'kernels'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC')
 #: Every kernel source of the port, by library name.
-KERNEL_SOURCES = {'saliency_postprocess': 'saliency_postprocess.cu'}
+KERNEL_SOURCES = {'saliency_postprocess': 'saliency_postprocess.cu',
+                  'butter_filtfilt': 'butter_filtfilt.cu'}
 
 _LOADED: dict = {}
 
@@ -93,13 +96,14 @@ def build_all(names=None) -> None:
 
 
 def load_library(name: str, signatures=None) -> ctypes.CDLL:
-    """The kernel's shared library, built first if needed.
+    """The kernel's shared library, built first if needed (with every other
+    missing kernel of :data:`KERNEL_SOURCES`, compiled together).
 
     ``signatures`` maps each C function to ``(argtypes, restype)``; they are
     set once, when the library is first loaded."""
     lib = _LOADED.get(name)
     if lib is None:
-        build_all([name])
+        build_all()
         lib = ctypes.CDLL(str(_lib_path(name)))
         sigs = {'rtv_cuda_error_string': ([ctypes.c_int], ctypes.c_char_p),
                 **(signatures or {})}

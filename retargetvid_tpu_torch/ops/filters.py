@@ -11,7 +11,9 @@ savgol_smooth, loess_smooth, smooth_segments`` (reference
   over time (an associative-scan form was 8 px off in float32, see
   ``docs/COMPONENTS.md``), with scipy's odd-extension padding and
   ``sosfilt_zi`` initial states; segments shorter than the pad length take
-  the reference's box-filter fallback.
+  the reference's box-filter fallback.  The extension and both passes are
+  ``kernels/filtfilt.py:butter_filtfilt``: one launch of a CUDA kernel on
+  the card, the plain op chain on the CPU.
 - **LOESS**: the reference's nearest-``w`` window is a contiguous range for
   uniformly spaced samples, so each position is a tricube-weighted
   quadratic least-squares fit, solved in a window-centred, scaled basis on
@@ -32,6 +34,7 @@ import numpy as np
 import torch
 from torch.nn import functional as F
 
+from retargetvid_tpu_torch.kernels.filtfilt import _gather, butter_filtfilt
 from retargetvid_tpu_torch.utils import timing
 
 __all__ = ["butter_lowpass_filter", "savgol_smooth", "loess_smooth",
@@ -65,66 +68,15 @@ def _butter_design(cutoff: float, fs: float, order: int):
     return padlen, tuple(sections)
 
 
-def _cascade(sig: torch.Tensor, mask: torch.Tensor, sections) -> torch.Tensor:
-    """SOS cascade over (B, N) signals; masked-out steps pass the input
-    through and keep the state.  Every section's initial state scales by
-    the cascade's first input sample (scipy ``sosfilt`` with ``zi``).
-
-    The sections run in one sequential loop over time: section k's output
-    at step n is section k+1's input at step n, the same arithmetic as
-    filtering the whole signal section by section.
-    """
-    x0 = sig[:, 0]
-    states = [(zi[0] * x0, zi[1] * x0) for _, _, _, zi in sections]
-    ys = []
-    for n in range(sig.shape[1]):
-        y = sig[:, n]
-        mt = mask[:, n]
-        for k, (b0, m, v, _) in enumerate(sections):
-            s0, s1 = states[k]
-            xt = y
-            y = torch.where(mt, b0 * xt + s0, xt)
-            n0 = (m[0][0] * s0 + m[0][1] * s1) + v[0] * xt
-            n1 = (m[1][0] * s0 + m[1][1] * s1) + v[1] * xt
-            states[k] = (torch.where(mt, n0, s0), torch.where(mt, n1, s1))
-        ys.append(y)
-    return torch.stack(ys, dim=1)
-
-
-def _gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    return torch.gather(x, 1, idx)
-
-
 def butter_lowpass_filter(x: torch.Tensor, n: torch.Tensor, cutoff: float,
                           fs: float, order: int) -> torch.Tensor:
     """scipy ``filtfilt`` on (B, L) padded series with live lengths ``n``
     (B,); short series (``n <= padlen``) take the box-5 fallback."""
-    b, L = x.shape
+    L = x.shape[1]
     dev = x.device
     padlen, sections = _butter_design(float(cutoff), float(fs), int(order))
-    idx = torch.arange(L + 2 * padlen, device=dev)[None, :].expand(b, -1)
     nn_ = n.to(torch.int64)[:, None]
-    xe = _gather(x, torch.clamp(nn_ - 1, 0, L - 1))
-    x0 = x[:, :1]
-
-    # Odd extension: [0, padlen) left, [padlen, padlen+n) data,
-    # [padlen+n, 2*padlen+n) right.
-    left = 2.0 * x0 - _gather(x, torch.clamp(padlen - idx, 0, L - 1))
-    mid = _gather(x, torch.clamp(idx - padlen, 0, L - 1))
-    jr = idx - padlen - nn_
-    right = 2.0 * xe - _gather(x, torch.clamp(nn_ - 2 - jr, 0, L - 1))
-    zero = torch.zeros_like(mid)
-    ext = torch.where(idx < padlen, left, torch.where(
-        idx < padlen + nn_, mid, torch.where(idx < 2 * padlen + nn_,
-                                             right, zero)))
-    ext_mask = idx < 2 * padlen + nn_
-
-    y1 = _cascade(ext, ext_mask, sections)
-    # Backward pass over the live region reversed into the front.
-    rev_idx = torch.clamp(2 * padlen + nn_ - 1 - idx, 0, L + 2 * padlen - 1)
-    y1r = _gather(y1, rev_idx)
-    y2 = _cascade(y1r, ext_mask, sections)
-    filt = _gather(y2, rev_idx)[:, padlen:padlen + L]
+    filt = butter_filtfilt(x, n, padlen, sections)
 
     # Reference fallback for short segments: box-5 mean of the interior.
     pos = torch.arange(L, device=dev)[None, :]
