@@ -27,7 +27,7 @@ HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
 #: Top-level module names that may not be loaded when the window closes.
 FORBIDDEN = ('jax', 'jaxlib', 'flax', 'retargetvid_tpu')
-#: Steady clips the traced run profiles after its window.
+#: Steady dispatches the traced run profiles after its window.
 PROFILED_CLIPS = 3
 
 
@@ -194,12 +194,17 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *,
     marks = [('start', time.perf_counter())]
     adapter = path.Adapter(cfg, traffic, seed, device)
     marks.append(('program', time.perf_counter()))
-    pool = adapter.make_pool(int(traffic['pool']))
+    # The items the window cycles over: clips, or one batch of them where
+    # the traffic names no pool (an adapter that runs ranks).
+    pool = adapter.make_pool(int(traffic.get('pool', 1)))
     _sync(device)
     marks.append(('pool', time.perf_counter()))
     rng = np.random.default_rng(seed % (2 ** 63))
-    keep = sorted(rng.choice(len(pool), size=int(traffic['check_clips']),
-                             replace=False).tolist())
+    if hasattr(adapter, 'checked_items'):
+        keep = adapter.checked_items(rng, int(traffic['check_clips']))
+    else:
+        keep = sorted(rng.choice(len(pool), size=int(traffic['check_clips']),
+                                 replace=False).tolist())
     adapter.collect(adapter.dispatch(pool[0]))
     _sync(device)
     marks.append(('warm clip', time.perf_counter()))
@@ -213,6 +218,10 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *,
     rec = closed_loop(adapter, pool, seconds, int(traffic['in_flight']),
                       keep, log_failure, clips)
     adapter.set_timer(None)
+    # Traced readings are per clip that the traced card (rank 0's, where
+    # the adapter runs ranks) computed: a dispatch may put several there.
+    per_card = int(getattr(adapter, 'clips_on_card', 1))
+    rec['clips'] *= per_card
     peak = (torch.cuda.max_memory_allocated(device)
             if device.type == 'cuda' else 0)
     rec.update(in_flight=int(traffic['in_flight']),
@@ -226,7 +235,7 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *,
             lambda: closed_loop(adapter, pool, 0.0,
                                 int(traffic['in_flight']), (),
                                 log_failure, clips=PROFILED_CLIPS),
-            PROFILED_CLIPS, device)
+            PROFILED_CLIPS, device, per_card)
         rec['profile'] = profile
         rec.update(adapter.counts())
 
@@ -236,6 +245,8 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *,
         torch.cuda.empty_cache()
     checks = adapter.check(rec['outputs'], [pool[i] for i in keep],
                            control=control)
+    # Every card's peak, where the adapter runs ranks on other cards.
+    peak = max([peak] + list(getattr(adapter, 'memory_peaks', list)()))
     readings = checks.pop('readings', None)
     del pool
     correct = (all(c['value'] <= c['limit'] for c in checks.values())
@@ -253,7 +264,8 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *,
     dev_info = {'platform': 'gpu' if device.type == 'cuda' else 'cpu',
                 'kind': (torch.cuda.get_device_name(device)
                          if device.type == 'cuda' else 'cpu'),
-                'count': 1, 'memory_peak_bytes': int(peak)}
+                'count': int(cell['chips']),
+                'memory_peak_bytes': int(peak)}
     result = {'correct': bool(correct), 'attempted': rec['attempted'],
               'failed': rec['failed'], 'metrics': metrics,
               'device': dev_info}

@@ -65,20 +65,30 @@ def test_config_resolves(conf):
 def test_cell_resolves(cell):
     assert set(cell) == {'name', 'config', 'traffic', 'chips', 'why'}
     assert NAME.match(cell['name']) and NAME.match(cell['traffic'])
-    assert cell['chips'] == 1
+    assert cell['chips'] in (1, 4)
     assert 1 <= len(cell['why']) <= 200 and '\n' not in cell['why']
     traffic = json.loads((HERE / 'traffic' / f'{cell["traffic"]}.json')
                          .read_text())
     assert (HERE / 'paths' / f'{traffic["path"]}.py').is_file()
-    for key in ('frames', 'height', 'width', 'pool', 'check_clips',
-                'in_flight'):
+    for key in ('frames', 'height', 'width', 'check_clips', 'in_flight'):
         assert int(traffic[key]) > 0
+    if 'dp' in traffic:
+        # Ranks, one per card: the batch is dp x clips_per_rank clips.
+        assert int(traffic['dp']) == cell['chips'] and 'pool' not in traffic
+        assert int(traffic['clips_per_rank']) > 0
+    else:
+        assert cell['chips'] == 1 and int(traffic['pool']) > 0
     e2e = [m['name'] for m in SPEC['end_to_end']
            if cell['name'] in m.get('workloads', [cell['name']])]
     assert 'setup_s' in e2e and len(e2e) >= 2
     layer = [m for m in SPEC['per_layer']
              if cell['name'] in m.get('workloads', [cell['name']])]
     assert layer and all(m['moves'] in e2e for m in layer)
+
+
+def test_four_chip_cells_are_capped():
+    four = [w['name'] for w in SPEC['workloads'] if w['chips'] == 4]
+    assert len(four) <= max(1, len(SPEC['workloads']) // 4), four
 
 
 def test_pairs_and_names_are_unique():
@@ -141,6 +151,21 @@ def test_readers_read_a_record():
     assert got['postprocess_roofline'] == pytest.approx(10.0)
     # 2 ms at the peaks against 0.6 s per clip.
     assert got['mfu'] == pytest.approx(100 * 2e-3 / 0.6)
+
+
+def test_gather_ms_reads_nccl_kernels_per_dispatch():
+    from portbench import core
+    reader = core.load_module('metrics', 'gather_ms')
+    kernels = {'ncclDevKernel_AllGather_RING_LL(ncclDevKernelArgsStorage'
+               '<4096ul>)': (3e-4, 6),
+               'void saliency_postprocess_kernel<true>(float const*)':
+               (6e-5, 6)}
+    # Three dispatches of two clips each on the traced card.
+    rec = {'profile': {'kernels': kernels, 'clips': 6, 'dispatches': 3}}
+    assert reader.read(rec) == pytest.approx(0.1)
+    rec['profile']['kernels'] = {k: v for k, v in kernels.items()
+                                 if 'nccl' not in k}
+    assert reader.read(rec) is None
 
 
 def test_layers_are_named_alike():

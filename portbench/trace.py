@@ -98,9 +98,10 @@ def reduce(dev, host, window_s: float, clips: int) -> dict:
     }
 
 
-def profile_clips(fn, clips: int, device) -> dict:
-    """Run ``fn`` (the closed loop over ``clips`` clips) under the
-    profiler and reduce its events."""
+def profile_clips(fn, dispatches: int, device, per_card: int = 1) -> dict:
+    """Run ``fn`` (the closed loop over ``dispatches`` dispatches) under
+    the profiler and reduce its events; ``clips`` is the clips the traced
+    card computed, ``per_card`` of them in each dispatch."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU]
@@ -114,4 +115,6 @@ def profile_clips(fn, clips: int, device) -> dict:
             torch.cuda.synchronize(device)
         window_s = time.perf_counter() - t0
     dev, host = _events(prof)
-    return reduce(dev, host, window_s, clips)
+    out = reduce(dev, host, window_s, dispatches * per_card)
+    out['dispatches'] = dispatches
+    return out
