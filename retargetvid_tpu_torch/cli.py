@@ -26,7 +26,9 @@ reference's:
 
 Model weights: ``--unisal-weights`` (the reference's torch
 ``weights_best.pth``) and ``--transnet-weights`` (the ``{'params': ...}``
-pickle of the TransNet converter); without them the models get seeded
+pickle of the TransNet converter; with ``--transnet-arch v2``, a state
+dict saved from the published TransNet V2 PyTorch module, for example
+``transnetv2-pytorch-weights.pth``); without them the models get seeded
 random weights (throughput runs only: IoU numbers are meaningless).
 ``--device`` (default ``cuda``) is where everything runs; a missing GPU is
 an error unless ``--device cpu`` is given.
@@ -71,19 +73,25 @@ def _load_unisal(args):
 
 
 def _load_transnet(args):
-    """TransNetV1 from ``--transnet-weights``, else seeded."""
+    """The ``--transnet-arch`` model (V1 or V2) from
+    ``--transnet-weights``, else seeded."""
     from retargetvid_tpu_torch.convert import load_flax_variables
     from retargetvid_tpu_torch.models.init import seeded_init_
     from retargetvid_tpu_torch.models.transnet import TransNetV1
+    from retargetvid_tpu_torch.models.transnetv2 import TransNetV2
 
-    model = TransNetV1()
-    if args.transnet_weights:
+    v2 = getattr(args, 'transnet_arch', 'v1') == 'v2'
+    if not args.transnet_weights:
+        print(' WARNING: no --transnet-weights; using random init')
+        return seeded_init_(TransNetV2() if v2 else TransNetV1(), 0)
+    if v2:
+        model = TransNetV2.from_state_dict(torch.load(
+            args.transnet_weights, map_location='cpu', weights_only=True))
+    else:
+        model = TransNetV1()
         with open(args.transnet_weights, 'rb') as fp:
             load_flax_variables(model, pickle.load(fp))
-        print(f' loaded TransNet weights from {args.transnet_weights}')
-    else:
-        seeded_init_(model, 0)
-        print(' WARNING: no --transnet-weights; using random init')
+    print(f' loaded TransNet weights from {args.transnet_weights}')
     return model
 
 
@@ -844,6 +852,12 @@ def build_parser() -> argparse.ArgumentParser:
             'UNISAL_WEIGHTS', ''))
         sp.add_argument('--transnet-weights', default=os.environ.get(
             'TRANSNET_WEIGHTS', ''))
+        sp.add_argument('--transnet-arch', choices=('v1', 'v2'),
+                        default='v1',
+                        help="shot detector: TransNet 'v1' (cut above 0.1; "
+                             "weights: the converter's pickle) or 'v2' "
+                             '(cut above 0.5; weights: a state dict of the '
+                             'published PyTorch module)')
         sp.add_argument('--chunk', type=int, default=32,
                         help='saliency inference batch size')
         sp.add_argument('--best-settings', action='store_true',

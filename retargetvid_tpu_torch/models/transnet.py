@@ -22,7 +22,13 @@ by reshaping the clamped-gather of the padded clip into ``stride``-frame
 blocks and concatenating ``window // stride`` shifted block views, as the
 JAX package does.  Each window's convs zero-pad at the window's own edges,
 so the windowed plan is the reference's, and a window spanning the whole
-clip computes exactly what ``fullseq`` computes.
+clip computes exactly what ``fullseq`` computes.  Both plans also serve
+``models.transnetv2.TransNetV2``, which has the same interface, and count
+the frames their forward processed (``transnet_frames``).
+
+The cut threshold belongs to the detector: :func:`cut_threshold` reads a
+model's or predictor's ``threshold`` (``TransNetV1.threshold`` is the
+reference's 0.1, ``TransNetV2.threshold`` the published 0.5).
 """
 
 from __future__ import annotations
@@ -32,15 +38,24 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from retargetvid_tpu_torch.config import TRANS_THRESHOLD
 from retargetvid_tpu_torch.device import resolve_device
+from retargetvid_tpu_torch.utils import timing
 
 __all__ = ["TransNetV1", "DDCNN", "INPUT_HEIGHT", "INPUT_WIDTH",
-           "window_forward", "fullseq_forward", "predict_video_windows",
-           "TransNetPredictor", "IngestShotProgram"]
+           "cut_threshold", "window_forward", "fullseq_forward",
+           "predict_video_windows", "TransNetPredictor", "IngestShotProgram"]
 
 INPUT_HEIGHT = 27
 INPUT_WIDTH = 48
 _DILATIONS = (1, 2, 4, 8)
+
+
+def cut_threshold(detector) -> float:
+    """The transition probability above which ``detector`` (a model, a
+    predictor, or any callable giving probabilities) calls a cut: its
+    ``threshold``, else TransNet V1's."""
+    return float(getattr(detector, 'threshold', TRANS_THRESHOLD))
 
 
 class DDCNN(nn.Module):
@@ -64,6 +79,9 @@ class TransNetV1(nn.Module):
     (cast the module with ``.to(torch.bfloat16)`` for bf16, as the JAX
     model's ``dtype`` does); the softmax runs in float32.
     """
+
+    #: The reference's cut threshold (``smartVidCrop.py:64``).
+    threshold = TRANS_THRESHOLD
 
     def __init__(self, f: int = 16, l: int = 3, s: int = 2, d: int = 256):
         super().__init__()
@@ -116,6 +134,7 @@ def window_forward(model: nn.Module, frames: torch.Tensor, n: int, cap: int,
                       - keep[0], 0, n - 1)
     blocks = frames[src].reshape(kk, stride, *frames.shape[1:])
     windows = torch.cat([blocks[off:off + n_w] for off in range(m)], dim=1)
+    timing.count('transnet_frames', n_w * window)
     probs = model(windows)                                  # (n_w, window)
     return probs[:, keep[0]:keep[1]].reshape(-1)[:cap]
 
@@ -126,6 +145,7 @@ def fullseq_forward(model: nn.Module, frames: torch.Tensor, n: int, cap: int,
     ``keep[0]`` frames each side (clamped gather): ``cap`` probabilities."""
     src = torch.clamp(torch.arange(cap + 2 * keep[0], device=frames.device)
                       - keep[0], 0, n - 1)
+    timing.count('transnet_frames', cap + 2 * keep[0])
     return model(frames[src][None])[0][keep[0]:keep[0] + cap]
 
 
@@ -187,6 +207,7 @@ class TransNetPredictor:
             raise ValueError('window must be a multiple of stride')
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
+        self.threshold = cut_threshold(model)
         self.window = window
         self.stride = stride
         self.keep = keep
@@ -222,6 +243,7 @@ class IngestShotProgram:
                                            stride=stride, keep=keep,
                                            device=device)
         self.device = self.predictor.device
+        self.threshold = self.predictor.threshold
         self.sal_hw = tuple(sal_hw)
 
     def __call__(self, frames):

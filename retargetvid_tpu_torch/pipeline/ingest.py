@@ -16,6 +16,10 @@ Port of ``retargetvid_tpu/pipeline/ingest.py`` (reference
   frame; saliency runs on each batch's picks;
 - the scene list from thresholded probabilities with the boundary fix.
 
+A cut is a probability above the shot detector's own threshold
+(``models.transnet.cut_threshold`` of ``transnet_fn``: 0.1 for TransNet
+V1 and any detector that states none, 0.5 for TransNet V2).
+
 :func:`read_and_segment_video` probes and opens the file; the chunk loop is
 :func:`segment_chunks`, which takes any iterator of ``(chunk, start)``
 pairs (a decoded file or frames already in memory).  Both return the
@@ -44,6 +48,7 @@ from retargetvid_tpu_torch.models.transnet import (
     INPUT_HEIGHT,
     INPUT_WIDTH,
     IngestShotProgram,
+    cut_threshold,
 )
 from retargetvid_tpu_torch.ops.resize import resize, round_half_up
 from retargetvid_tpu_torch.ops.scenes import (
@@ -92,12 +97,13 @@ def _resize_kernel(h: int, w: int, sal_h: int, sal_w: int):
 
 def sample_frames(n_frames: int, trans_probs: np.ndarray, skip: int,
                   frame_count: int, start: int = 0,
-                  prev_true_inds: Optional[list] = None):
+                  prev_true_inds: Optional[list] = None,
+                  threshold: float = TRANS_THRESHOLD):
     """Reference frame-selection rule over one batch (``:379-399``).
 
     Selects frame start+i when it is exactly ``skip`` after the last
     selected frame, follows a frame whose transition probability exceeded
-    the threshold, is the first frame ever, or is the video's final frame.
+    ``threshold``, is the first frame ever, or is the video's final frame.
     Returns (selected_local_indices, true_inds, map2orig_additions).
     """
     true_inds = prev_true_inds if prev_true_inds is not None else []
@@ -108,7 +114,7 @@ def sample_frames(n_frames: int, trans_probs: np.ndarray, skip: int,
         f = start + i
         want = (f == true_inds[-1] + skip) if true_inds else True
         after_shot_change = f > 0 and bool(
-            trans_probs[f - 1] > TRANS_THRESHOLD)
+            trans_probs[f - 1] > threshold)
         if want or after_shot_change or f == frame_count - 1:
             total += 1
             selected.append(i)
@@ -181,6 +187,7 @@ def segment_chunks(info: dict, chunks: Iterable, crop_params: dict,
     batch_size = crop_params['read_batch']
     batch_overlap = int(fr - 5)
     skip = crop_params['skip']
+    threshold = cut_threshold(transnet_fn)
     sal_h, sal_w = sal_dims(w, h, crop_params['max_input_d'])
     kernel = _resize_kernel(h, w, sal_h, sal_w)
 
@@ -214,7 +221,7 @@ def segment_chunks(info: dict, chunks: Iterable, crop_params: dict,
         t = time.perf_counter()
         selected, _, m2o = sample_frames(
             cur_len, np.array(trans_probs), skip, frame_count,
-            start=batch_start, prev_true_inds=true_inds)
+            start=batch_start, prev_true_inds=true_inds, threshold=threshold)
         map2orig.extend(m2o)
         if selected:
             sm = saliency_fn(sal_batch[torch.as_tensor(selected,
@@ -252,17 +259,18 @@ def segment_chunks(info: dict, chunks: Iterable, crop_params: dict,
     vid_data = _finish_vid_data(
         np.array(trans_probs), total_read, map2orig, true_inds,
         _concat(smaps_parts, (sal_h, sal_w)), fr, h, w, (sal_h, sal_w),
-        frame_count)
+        frame_count, threshold)
     sc_register_time(t_tidy, 'read_tidy')
     return vid_data
 
 
 def _finish_vid_data(probs, n, map2orig, true_inds, smaps, fr, h, w,
-                     sal_hw, frame_count) -> dict:
+                     sal_hw, frame_count,
+                     threshold: float = TRANS_THRESHOLD) -> dict:
     """The ``vid_data`` dict of ``n`` ingested frames: the scene list from
-    the thresholded probabilities with the boundary fix, its selected-frame
-    counterpart, and the sanity checks."""
-    segmentation = predictions_to_scenes(probs, threshold=TRANS_THRESHOLD)
+    the probabilities above ``threshold`` with the boundary fix, its
+    selected-frame counterpart, and the sanity checks."""
+    segmentation = predictions_to_scenes(probs, threshold=threshold)
     segmentation = fix_scene_bounds(segmentation, n)
     vid_data = {
         'layout': 'thw',
@@ -426,9 +434,11 @@ def read_video_structure(video_path, crop_params: dict,
         else:
             tn, sal_frames = kernel(raw)
             probs = np.asarray(transnet_fn(tn))
-    selected, true_inds, map2orig = sample_frames(fc, probs, skip, fc)
+    threshold = cut_threshold(transnet_fn)
+    selected, true_inds, map2orig = sample_frames(fc, probs, skip, fc,
+                                                  threshold=threshold)
     segmentation = fix_scene_bounds(
-        predictions_to_scenes(probs, threshold=TRANS_THRESHOLD), fc)
+        predictions_to_scenes(probs, threshold=threshold), fc)
     return {
         'sal_frames': sal_frames.cpu().numpy(),
         'selected': selected,

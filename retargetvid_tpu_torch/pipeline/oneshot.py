@@ -5,10 +5,12 @@ scene_bounds_device, make_oneshot_body, OneShotClipProgram``:
 
 1. two linear ingest resizes (27x48 for TransNet, max-dim 250 for
    saliency), quantized to uint8;
-2. TransNetV1: the reference's 100/50 window plan (the default, as in the
-   JAX package) or one forward over the edge-padded clip
-   (``tn_fullseq=True``, the JAX bench and ``cli benchmark`` default);
-3. frame sampling and scene bounds on the device;
+2. TransNet (``TransNetV1``, or ``models.transnetv2.TransNetV2``): the
+   reference's 100/50 window plan (the default, as in the JAX package) or
+   one forward over the edge-padded clip (``tn_fullseq=True``, the JAX
+   bench and ``cli benchmark`` default);
+3. frame sampling and scene bounds on the device, at the model's cut
+   threshold (``models.transnet.cut_threshold``);
 4. UNISAL on the sampled frames, the saliency postprocess kernel and the
    geometry chain (``pipeline.fused``), for one output ratio
    (:meth:`OneShotClipProgram.run`) or R of them from one pass
@@ -29,6 +31,7 @@ import torch
 from retargetvid_tpu_torch.config import TRANS_THRESHOLD, sal_dims
 from retargetvid_tpu_torch.device import resolve_device
 from retargetvid_tpu_torch.models.transnet import (
+    cut_threshold,
     fullseq_forward,
     window_forward,
 )
@@ -152,8 +155,10 @@ def make_oneshot_body(un_model, tn_model, *, source, dtype, t_border,
     are 0 and sampling and scenes stop at ``n``.  Shared by
     :class:`OneShotClipProgram` (``n == fc``) and
     ``parallel.runner.ShardedOneShot``, which pads the clips of a batch to
-    one capacity."""
+    one capacity.  Cuts are probabilities above ``tn_model``'s
+    threshold."""
     sal_h, sal_w = sal_hw
+    threshold = cut_threshold(tn_model)
     clip_fn = make_clip_fn(
         un_model, source=source, dtype=dtype, t_border=t_border, cfg=cfg,
         in_hw=(sal_h, sal_w), net_hw=net_hw, t_out=t_out, fps=fps,
@@ -174,9 +179,9 @@ def make_oneshot_body(un_model, tn_model, *, source, dtype, t_border,
                 probs = torch.where(torch.arange(fc, device=dev) < n,
                                     probs, torch.zeros_like(probs))
             sel_mask_f, sel_idx, fc_sel, ti = sample_frames_device(
-                probs, skip, fc, t_sel_pad, n=n)
+                probs, skip, fc, t_sel_pad, threshold, n=n)
             ss, se, sss, sse, n_seg = scene_bounds_device(
-                probs, sel_mask_f, fc, s_pad, n=n)
+                probs, sel_mask_f, fc, s_pad, threshold, n=n)
         # Clamp against a clip with more picks than t_sel_pad, as XLA
         # clamps its gathers: the body completes, and the caller sees the
         # raw counts (collect() raises, ShardedOneShot flags an overrun).
@@ -199,10 +204,12 @@ def make_oneshot_body(un_model, tn_model, *, source, dtype, t_border,
 class OneShotClipProgram:
     """Raw decoded frames -> crop boxes on one device.
 
-    ``tn_model``/``un_model``: ``TransNetV1`` and ``UNISAL`` modules (for
-    example filled by ``convert.load_flax_variables``).  TransNet computes
-    in ``dtype``; UNISAL takes its input in ``dtype`` and computes in its
-    own parameters' dtype (float32), as the JAX models do.  The TransNet
+    ``tn_model``/``un_model``: ``TransNetV1`` (for example filled by
+    ``convert.load_flax_variables``) or ``TransNetV2``, and ``UNISAL``.
+    TransNet is cast to ``dtype`` whole (for V2 the parts that run in
+    float32 are in its module's docstring); UNISAL takes its input in
+    ``dtype`` and computes in its own parameters' dtype (float32), as the
+    JAX models do.  The TransNet
     plan is the 100/50 window plan (``window``, ``stride``, ``keep``)
     unless ``tn_fullseq``.  ``device=None`` means the GPU.
     """

@@ -122,11 +122,13 @@ class StageTimer:
     clip.  Neither adds a device sync; :meth:`spans` and :meth:`times_ms`
     synchronize once, when read after the run.
 
-    Stages of the programs: ``transnet``, ``unisal``, ``geometry`` (with
-    ``geometry.cluster``, ``geometry.redo``, ``geometry.interpolate``,
-    ``geometry.lowpass`` and ``geometry.loess`` inside it) and
-    ``predict_video``'s ``chunks``.  Counters: ``ccl_sweeps``,
-    ``redo_frames`` and ``dispatch_syncs``.
+    Stages of the programs: ``transnet`` (with TransNet V2's
+    ``transnet.stacks`` and ``transnet.similarity`` inside it),
+    ``unisal``, ``geometry`` (with ``geometry.cluster``, ``geometry.redo``,
+    ``geometry.interpolate``, ``geometry.lowpass`` and ``geometry.loess``
+    inside it) and ``predict_video``'s ``chunks``.  Counters:
+    ``transnet_frames``, ``ccl_sweeps``, ``redo_frames`` and
+    ``dispatch_syncs``.
     """
 
     def __init__(self):

@@ -97,6 +97,8 @@ def test_parser_defaults(argv, monkeypatch):
     assert ref.pop('mesh', 0) == got.pop('mesh', 0) == 0
     if argv[0] != 'eval':
         assert got.pop('device') == 'cuda'
+        # The port's own choice of shot detector; V1 is the JAX CLI's.
+        assert got.pop('transnet_arch') == 'v1'
     assert got == ref
     monkeypatch.setenv('UNISAL_WEIGHTS', '/w/u.pth')
     monkeypatch.setenv('TRANSNET_WEIGHTS', '/w/t.pkl')

@@ -19,7 +19,7 @@ STAGES = ('transnet', 'unisal', 'geometry')
 GEOMETRY_SPANS = ('geometry.cluster', 'geometry.redo',
                   'geometry.interpolate', 'geometry.lowpass',
                   'geometry.loess')
-COUNTERS = ('ccl_sweeps', 'redo_frames', 'dispatch_syncs')
+COUNTERS = ('transnet_frames', 'ccl_sweeps', 'redo_frames', 'dispatch_syncs')
 
 
 class _CutAt(torch.nn.Module):
@@ -104,6 +104,8 @@ def test_dispatch_records_the_spans_and_counters(setup, cuts):
     counts = timer.counts()
     assert set(counts) == set(COUNTERS)
     assert all(len(v) == 1 for v in counts.values())
+    # The full-sequence plan: the clip and 25 edge frames on each side.
+    assert counts['transnet_frames'] == [len(frames) + 50]
     redo = counts['redo_frames'][0]
     assert redo == expected_redo_frames(out) > 0
     # One connected-components pass per clustering call: pass 1 and one
