@@ -39,6 +39,15 @@ and fails (exit code != 0) if any phase fails:
       update that carries from step to step: 2 passes x (3 dependent
       float32 operations x N steps + 2 per section to fill the cascade)
       x 4 cycles at the card's maximum SM clock;
+  (b3) bn_act kernel vs plain version: ``kernels/bn_act.py:bn_act`` at the
+      static forward's largest BatchNorm input (96, 96, 128, 208)
+      channels-last in its three forms (ReLU6, alone, residual add), no
+      more than 2^-20 of the terms' size from the plain version (eval
+      ``F.batch_norm``, ``torch.clamp``, ``+``); ``ms_device`` (two 0.98
+      GB inputs in turn) and ``ms_device_warm`` (one) from the CUDA-graph
+      timer, ``ms_call``, the plain version's device time, cuDNN's eval
+      BatchNorm alone (one pass over the same bytes), and the bytes bound
+      at 3.35 TB/s; the main path must launch it 64 times a clip;
   (c) main path: ``OneShotClipProgram.run`` with the full-sequence
       TransNet plan on the synthetic 480x360x640 clip of ``bench.py``
       (30 fps, 1:3 ratio), full-width TransNetV1 and UNISAL with seeded
@@ -181,7 +190,8 @@ time; the per-operator tables go to ``DIR/profile_<phase>.txt``).
 
 Each phase prints one JSON line carrying the card's name and power limit;
 then a line with every kernel's record (with its launches on each path:
-``butter_filtfilt``'s read wherever the postprocess kernel's are),
+``butter_filtfilt``'s and ``bn_act``'s read wherever the postprocess
+kernel's are),
 the ``nvidia-smi`` name/power-limit line, and last ``{"ok": true,
 "device": {...}}``.  Without a GPU, or
 without the repository beside it, it exits with an error and prints no
@@ -588,6 +598,201 @@ def phase_filtfilt(card):
     return rec
 
 
+#: The static forward's largest BatchNorm input, channels-last: block 2's
+#: expanded 96 channels at 128x208, 96 picks (its BatchNorms take ReLU6).
+BN_ACT_SHAPE = (96, 96, 128, 208)
+#: The static forward's BatchNorms: one launch each per clip.
+BN_ACT_PER_CLIP = 64
+#: The kernel against its plain version: float32 rounding of the scale and
+#: shift and the ops after them, on the size of the terms either order of
+#: the arithmetic rounds (|x s| + |mean s| + |beta| + |r|), as
+#: ``tests/test_torch_bn_act.py``.
+BN_ACT_REL_TOL = 2.0 ** -20
+
+
+#: The kernel's three forms on the path: (ReLU6, residual).
+BN_ACT_FORMS = {'relu6': (True, False), 'alone': (False, False),
+                'residual': (False, True)}
+
+
+def bn_act_case(shape, with_res, seed, layout='nhwc'):
+    """Seeded input, residual (or None) in ``layout`` and BatchNorm buffers
+    on the card."""
+    import torch
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+
+    def values(*size, scale=1.0, shift=0.0):
+        return torch.randn(size, generator=gen, device='cuda') * scale + shift
+
+    def laid_out(t):
+        return t.contiguous(memory_format=torch.channels_last
+                            if layout == 'nhwc' else torch.contiguous_format)
+
+    c = shape[1]
+    x = laid_out(values(*shape, scale=3.0))
+    res = laid_out(values(*shape)) if with_res else None
+    stats = (values(c), values(c).abs() + 0.1, values(c, scale=0.5,
+                                                       shift=1.0),
+             values(c, scale=0.5))
+    return x, res, stats
+
+
+def bn_act_path_calls():
+    """(C, H, W, layout, form) of each kernel call of one static forward of
+    the bench's UNISAL over 96 picks, preprocessed as the main path
+    preprocesses them."""
+    import types
+
+    import torch
+
+    from retargetvid_tpu_torch import bench, mfu
+    from retargetvid_tpu_torch.kernels import bn_act as kernel
+    from retargetvid_tpu_torch.models import layers
+
+    calls = []
+
+    def record(x, mean, var, gamma, beta, eps, relu6=False, residual=None):
+        form = ('relu6' if relu6 else 'alone' if residual is None
+                else 'residual')
+        calls.append((*x.shape[1:], kernel.layout_of(x), form))
+        return kernel.bn_act(x, mean, var, gamma, beta, eps, relu6,
+                             residual)
+
+    un = bench.build_models()[1].cuda()
+    gen = torch.Generator(device='cuda').manual_seed(4)
+    frames = torch.randint(0, 256, (mfu.PICKS, *mfu.SAL_HW, 3),
+                           generator=gen, device='cuda', dtype=torch.uint8)
+    layers.bn_act_kernel = types.SimpleNamespace(
+        bn_act=record, layout_of=kernel.layout_of)
+    try:
+        with torch.inference_mode():
+            mfu.unisal_forward(un, frames)
+    finally:
+        layers.bn_act_kernel = kernel
+    del un, frames
+    torch.cuda.empty_cache()
+    return calls
+
+
+def bn_act_check(shape, layout, form, seed):
+    """The kernel against its plain version and the exact value (float64)
+    on seeded values: the worst error of each on the size of the terms
+    either order of the arithmetic rounds, the kernel's x s + t and cuDNN's
+    (x - mean) s + beta.  Fails past :data:`BN_ACT_REL_TOL` or where the
+    output's strides are not the input's."""
+    import torch
+
+    from retargetvid_tpu_torch.kernels.bn_act import bn_act, bn_act_reference
+    eps = 1e-5
+    relu6, with_res = BN_ACT_FORMS[form]
+    x, res, stats = bn_act_case(shape, with_res, seed, layout)
+    got = bn_act(x, *stats, eps, relu6=relu6, residual=res)
+    want = bn_act_reference(x, *stats, eps, relu6=relu6, residual=res)
+    mean, var, gamma, beta = (v.double()[None, :, None, None] for v in stats)
+    scale = gamma / torch.sqrt(var + eps)
+    exact = x.double() * scale + (beta - mean * scale)
+    if relu6:
+        exact = exact.clamp(0.0, 6.0)
+    size = (x.double().abs() + mean.abs()) * scale.abs() + beta.abs()
+    if res is not None:
+        exact += res.double()
+        size += res.double().abs()
+    rel = {'kernel_vs_plain': float(((got.double() - want.double()).abs()
+                                     / size).max()),
+           'kernel_vs_exact': float(((got.double() - exact).abs()
+                                     / size).max()),
+           'plain_vs_exact': float(((want.double() - exact).abs()
+                                    / size).max())}
+    if rel['kernel_vs_plain'] > BN_ACT_REL_TOL or got.stride() != x.stride():
+        fail(f'bn_act kernel ({form}, {shape}, {layout}): '
+             f'{rel["kernel_vs_plain"]} of the terms\' size from the plain '
+             f'version (limit {BN_ACT_REL_TOL}), strides {got.stride()} for '
+             f'{x.stride()}')
+    return rel
+
+
+def phase_bn_act(card):
+    import torch
+
+    from retargetvid_tpu_torch.kernels.bn_act import (
+        bn_act,
+        bn_act_reference,
+        launch_plan,
+    )
+    eps = 1e-5
+    launches_before = bn_act.launches
+    # Every (C, H, W) and layout the static forward gives the kernel, in
+    # each of the three forms, at 96 picks.
+    path = bn_act_path_calls()
+    if len(path) != BN_ACT_PER_CLIP:
+        fail(f'bn_act kernel: {len(path)} calls in a static forward, not '
+             f'{BN_ACT_PER_CLIP}')
+    shapes = sorted({call[:4] for call in path})
+    launches_checked = bn_act.launches
+    worst = {form: {} for form in BN_ACT_FORMS}
+    for i, (c, h, w, layout) in enumerate(shapes):
+        for form in BN_ACT_FORMS:
+            rel = bn_act_check((BN_ACT_SHAPE[0], c, h, w), layout, form,
+                               seed=100 + i)
+            for key, v in rel.items():
+                if v >= worst[form].get(key, -1.0):
+                    worst[form][key] = v
+                    if key == 'kernel_vs_plain':
+                        worst[form]['at'] = [c, h, w, layout]
+    if bn_act.launches != launches_checked + len(BN_ACT_FORMS) * len(shapes):
+        fail('bn_act kernel: not one launch per call')
+    torch.cuda.empty_cache()
+
+    inputs = [bn_act_case(BN_ACT_SHAPE, False, seed=s)
+              for s in (2, 3)]
+
+    def kernel(case):
+        return bn_act(case[0], *case[2], eps, relu6=True)
+
+    def plain(case):
+        return bn_act_reference(case[0], *case[2], eps, relu6=True)
+
+    def batch_norm_alone(case):
+        return torch.nn.functional.batch_norm(case[0], *case[2],
+                                              training=False, eps=eps)
+
+    # Each input is 0.98 GB, far past the 50 MB L2: every launch finds its
+    # input cold either way.
+    ms_cold = device_ms(kernel, inputs, n=20, reps=5)
+    ms_warm = device_ms(kernel, inputs[:1], n=20, reps=5)
+    ms_call = call_ms(lambda: kernel(inputs[0]), n=10)
+    plain_ms = device_ms(plain, inputs, n=10, reps=3)
+    bn_alone_ms = device_ms(batch_norm_alone, inputs, n=10, reps=3)
+    n_el = int(np.prod(BN_ACT_SHAPE))
+    moved = 8 * n_el                                # read x, write y
+    bound_ms = moved / H100_BYTES_PER_S * 1e3
+    rec = {'name': 'bn_act', 'route': 'cuda',
+           'source': 'retargetvid_tpu_torch/csrc/bn_act.cu',
+           'replaces': 'none (the JAX package leaves the epilogue to XLA\'s '
+                       'conv fusion); the port\'s three ops, kernels/'
+                       'bn_act.py:bn_act_reference',
+           'checked': {'shapes_on_path': [list(sh) for sh in shapes],
+                       'calls_on_path': len(path),
+                       'forms': list(BN_ACT_FORMS), 'picks': BN_ACT_SHAPE[0]},
+           'shape': list(BN_ACT_SHAPE), 'layout': 'channels-last',
+           'plan': launch_plan(BN_ACT_SHAPE, 'nhwc')._asdict(),
+           'worst_rel_diff': worst, 'tolerance_rel': BN_ACT_REL_TOL,
+           'ms_device': ms_cold, 'ms_device_warm': ms_warm,
+           'ms_call': ms_call, 'plain_ms': plain_ms,
+           'bound_ms': bound_ms,
+           'bound_by': f'bytes: {moved} ({n_el} float32 read and written) '
+                       f'at 3.35 TB/s',
+           'bound_share': bound_ms / ms_cold,
+           'achieved_bytes_per_s': moved / (ms_cold * 1e-3),
+           'library_ms': None,
+           'batch_norm_alone_ms': bn_alone_ms,
+           'launches_in_phase': bn_act.launches - launches_before}
+    del inputs
+    torch.cuda.empty_cache()
+    emit(card, phase='bn_act', **rec)
+    return rec
+
+
 def build_models(seed=0):
     """The bench's seeded full-width models, TransNet's head biased as
     bench.py does (random weights fire a "cut" on every frame), so sampling
@@ -656,25 +861,30 @@ class Bench:
             fail('non-finite smoothed centers')
 
 
-#: ``butter_filtfilt`` launches on each path, read where the postprocess
-#: kernel's count is read: the filtfilt record's ``launches_by_path``.
+#: ``butter_filtfilt`` and ``bn_act`` launches on each path, read where the
+#: postprocess kernel's count is read: their records' ``launches_by_path``.
 FILTFILT_LAUNCHES = {}
+BN_ACT_LAUNCHES = {}
 
 
 def zero_launches():
-    """Set both kernels' launch counts to 0, before a path's run."""
+    """Set the kernels' launch counts to 0, before a path's run."""
+    from retargetvid_tpu_torch.kernels.bn_act import bn_act
     from retargetvid_tpu_torch.kernels.filtfilt import butter_filtfilt
     from retargetvid_tpu_torch.kernels.postprocess import saliency_postprocess
     saliency_postprocess.launches = 0
     butter_filtfilt.launches = 0
+    bn_act.launches = 0
 
 
-def note_filtfilt(path):
-    """Add the filtfilt launches since :func:`zero_launches` to ``path``'s
-    count."""
+def note_launches(path):
+    """Add the filtfilt and bn_act launches since :func:`zero_launches` to
+    ``path``'s counts."""
+    from retargetvid_tpu_torch.kernels.bn_act import bn_act
     from retargetvid_tpu_torch.kernels.filtfilt import butter_filtfilt
     FILTFILT_LAUNCHES[path] = (FILTFILT_LAUNCHES.get(path, 0)
                                + butter_filtfilt.launches)
+    BN_ACT_LAUNCHES[path] = BN_ACT_LAUNCHES.get(path, 0) + bn_act.launches
 
 
 def expect_filtfilt(path, cp, n):
@@ -690,7 +900,7 @@ def expect_filtfilt(path, cp, n):
 def drive(run, warm, clips, path, program=None):
     """``run`` on the warm-up clip, then on each clip with the kernels'
     launch counts set to 0 just before and read just after (the filtfilt
-    count noted under ``path``): per-clip ms, outputs, postprocess
+    and bn_act counts noted under ``path``): per-clip ms, outputs, postprocess
     launches and, with ``program``, its median stage times."""
     import torch
 
@@ -708,7 +918,7 @@ def drive(run, warm, clips, path, program=None):
         outs.append(run(clip))
         times.append((time.perf_counter() - t0) * 1e3)
     launches = saliency_postprocess.launches
-    note_filtfilt(path)
+    note_launches(path)
     if program is not None:
         program.timer = None
     stages = {k: statistics.median(v) for k, v in timer.times_ms().items()}
@@ -761,6 +971,10 @@ def phase_main_path(card, bench, profile_dir=None):
         bench.clips, 'main_path', program)
     expect_launches('main path', launches, len(bench.clips))
     expect_filtfilt('main_path', bench.cp, len(bench.clips))
+    if BN_ACT_LAUNCHES['main_path'] != BN_ACT_PER_CLIP * len(bench.clips):
+        fail(f'main path: {BN_ACT_LAUNCHES["main_path"]} bn_act launches '
+             f'for {len(bench.clips)} clips (expected {BN_ACT_PER_CLIP} '
+             f'per clip, one per BatchNorm of the static forward)')
     rows = stages.get('lowpass_kernel_rows', 0)
     if rows != 2 * program.s_pad:
         fail(f'main path: lowpass_kernel_rows {rows} per clip, expected '
@@ -774,7 +988,8 @@ def phase_main_path(card, bench, profile_dir=None):
          fc_sel=[o['fc_sel'] for o in outs],
          n_segments=[o['n_segments'] for o in outs],
          stage_median_ms=stages, postprocess_launches=launches,
-         filtfilt_launches=FILTFILT_LAUNCHES['main_path'])
+         filtfilt_launches=FILTFILT_LAUNCHES['main_path'],
+         bn_act_launches=BN_ACT_LAUNCHES['main_path'])
     if profile_dir is not None:
         profile_clip(card, lambda: program.run(bench.clips[0], bench.cp,
                                                **bench.kw),
@@ -883,7 +1098,7 @@ def phase_multi_ratio(card, bench, program, cp=None, phase='multi_ratio'):
             ms[name].append((time.perf_counter() - t0) * 1e3)
             launches[name] += saliency_postprocess.launches
             if name == 'multi':
-                note_filtfilt(phase)
+                note_launches(phase)
     program.timer = None
     expect_launches(phase, launches['multi'], len(bench.clips))
     expect_launches(f'{phase}, two runs', launches['runs'],
@@ -991,7 +1206,7 @@ def phase_two_dispatch(card, bench, cp=None, phase='two_dispatch'):
         shots.append(n_seg)
         parts.append(ms)
     launches = saliency_postprocess.launches
-    note_filtfilt(phase)
+    note_launches(phase)
     fused.timer = None
     expect_launches(phase, launches, len(clips))
     if shots != [12] * len(clips):
@@ -1097,7 +1312,7 @@ def phase_crop_stream(card, bench, cp=None, phase='crop_stream',
             ms[name].append((time.perf_counter() - t0) * 1e3)
             launches[name].append(saliency_postprocess.launches)
             if name == 'stream':
-                note_filtfilt(phase)
+                note_launches(phase)
         check_boxes(np.asarray(vd['bbs']), bench.dest, bench.h, bench.w)
         if res['result'] != 'smart cropped':
             fail(f'{phase}: result {res["result"]!r}')
@@ -1164,7 +1379,7 @@ def phase_cli_crop_pickle(card, bench):
                       '--out', str(out)] + extra)
             wall = time.perf_counter() - t0
             launches = saliency_postprocess.launches
-            note_filtfilt('cli_crop_pickle')
+            note_launches('cli_crop_pickle')
             total += launches
             expect_chunk_launches(f'cli_crop_pickle {preset}', launches,
                                   picks)
@@ -1249,7 +1464,7 @@ def phase_predict_video(card, bench, profile_dir=None):
                                                smooth_method=modes[mode])
                 ms[mode].append((time.perf_counter() - t0) * 1e3)
                 launches[mode].append(saliency_postprocess.launches)
-                note_filtfilt('predict_video' if mode == 'none'
+                note_launches('predict_video' if mode == 'none'
                               else f'predict_video_{mode}')
                 n_chunks[mode].append(chunks[0])
                 stages[mode].append({k: v[0] for k, v in
@@ -1527,7 +1742,7 @@ def phase_train(card, bench, profile_dir=None):
                                             fix=fix[:len(frames)])
         ms[f'{label}_maps_and_scores'] = (time.perf_counter() - t0) * 1e3
         launches[label] = saliency_postprocess.launches
-        note_filtfilt('train_run_inference' if label == 'dynamic'
+        note_launches('train_run_inference' if label == 'dynamic'
                       else 'train_run_inference_static')
         want = 1 if label == 'dynamic' else -(-len(frames) // 32)
         if launches[label] != want:
@@ -1692,7 +1907,7 @@ def in_turns(runs, clips, path=None):
             ms[name].append((time.perf_counter() - t0) * 1e3)
             launches[name] += saliency_postprocess.launches
             if path is not None and name == 'sharded':
-                note_filtfilt(path)
+                note_launches(path)
     return ms, outs, launches
 
 
@@ -2195,7 +2410,7 @@ def phase_train_mesh(card, bench):
         maps, _ = trainers['mesh'].run_inference(clip, source='DHF1K')
         torch.cuda.synchronize()
         launches = saliency_postprocess.launches
-        note_filtfilt('train_mesh_run_inference')
+        note_launches('train_mesh_run_inference')
         if launches != 1 or maps.shape != tuple(clip.shape[:3]):
             fail(f'train_mesh run_inference: {launches} launches, maps '
                  f'{maps.shape}')
@@ -2298,7 +2513,7 @@ def phase_bench(card, bench):
         result, outs = run_bench(bench.tn, bench.un, clip_fn=clip_fn, **kw)
         torch.cuda.synchronize()
         launches[name] = saliency_postprocess.launches
-        note_filtfilt(name)
+        note_launches(name)
         if launches[name] != want:
             fail(f'{name}: {launches[name]} saliency_postprocess launches, '
                  f'expected {want} (one per clip)')
@@ -2828,6 +3043,7 @@ def main():
     phase_build(card)
     record = phase_kernel(card)
     filtfilt_record = phase_filtfilt(card)
+    bn_act_record = phase_bn_act(card)
     bench = Bench()
     program, main_outs, main_stages, launches = phase_main_path(
         card, bench, args.profile)
@@ -2868,7 +3084,8 @@ def main():
     if 'jax' in sys.modules:
         fail('jax was imported')
     filtfilt_record['launches_by_path'] = FILTFILT_LAUNCHES
-    print(json.dumps({'kernels': [record, filtfilt_record]}))
+    bn_act_record['launches_by_path'] = BN_ACT_LAUNCHES
+    print(json.dumps({'kernels': [record, filtfilt_record, bn_act_record]}))
     print(card)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -33,7 +33,8 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC')
 #: Every kernel source of the port, by library name.
 KERNEL_SOURCES = {'saliency_postprocess': 'saliency_postprocess.cu',
-                  'butter_filtfilt': 'butter_filtfilt.cu'}
+                  'butter_filtfilt': 'butter_filtfilt.cu',
+                  'bn_act': 'bn_act.cu'}
 
 _LOADED: dict = {}
 

@@ -19,6 +19,12 @@ Under mesh training (``parallel/shard.py``) each conv runs through
 train-mode BatchNorm takes its moments over the ranks that split the batch
 (SyncBN: the gradient flows through the reduced moments), so every rank's
 running statistics agree.
+
+Every BatchNorm of these blocks and of UNISAL's skip connections goes
+through :func:`bn_act` with the ReLU6 or residual add that follows it: in
+inference on the card (a CUDA tensor, no gradient recorded, the BatchNorm
+in eval mode) as one pass of the CUDA kernel ``kernels/bn_act.py``,
+otherwise as the separate ops.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from retargetvid_tpu_torch.kernels import bn_act as bn_act_kernel
 from retargetvid_tpu_torch.parallel import shard
 
 DEFAULT_SOURCES = ('DHF1K', 'Hollywood', 'UCFSports', 'SALICON')
@@ -106,10 +113,14 @@ class DomainBN(nn.Module):
             setattr(self, f'bn_{src.lower()}', BatchNorm(
                 ch, 0.9 if src == 'SALICON' else 0.99))
 
-    def forward(self, x, source: str = 'DHF1K'):
+    def select(self, source: str) -> BatchNorm:
+        """The BatchNorm of ``source``."""
         if source not in self.sources:
             raise ValueError(f'unknown source {source!r}')
-        return getattr(self, f'bn_{source.lower()}')(x)
+        return getattr(self, f'bn_{source.lower()}')
+
+    def forward(self, x, source: str = 'DHF1K'):
+        return self.select(source)(x)
 
 
 def make_bn(ch: int, ds_bn: bool, sources: Sequence[str]) -> nn.Module:
@@ -124,6 +135,33 @@ def apply_bn(bn: nn.Module, x, source: str):
     return bn(x)
 
 
+def bn_act(bn: nn.Module, x, source: str, act=None, residual=None):
+    """``residual + act(bn(x))``: the BatchNorm ``bn`` (a ``DomainBN``'s
+    of ``source``), then ``act`` (None or :func:`relu6`), then the
+    residual add where ``residual`` is given.
+
+    On a CUDA tensor with no gradient being recorded (the clip programs
+    run under ``inference_mode``) and ``bn`` in eval mode, one launch of
+    the kernel ``kernels/bn_act.py``, which raises on an input it does not
+    take; the residual is first laid out as ``x``.  A mesh shard's rows
+    are normalised element by element like any others.  Otherwise the
+    separate ops, as the modules ran them before the kernel (training,
+    mesh training, the CPU)."""
+    if isinstance(bn, DomainBN):
+        bn = bn.select(source)
+    if x.is_cuda and not torch.is_grad_enabled() and not bn.bn_train:
+        if residual is not None:
+            residual = residual.contiguous(
+                memory_format=torch.channels_last
+                if bn_act_kernel.layout_of(x) == 'nhwc'
+                else torch.contiguous_format)
+        return bn_act_kernel.bn_act(
+            x, bn.running_mean, bn.running_var, bn.weight, bn.bias, _BN_EPS,
+            relu6=act is relu6, residual=residual)
+    y = bn(x) if act is None else act(bn(x))
+    return y if residual is None else residual + y
+
+
 class ConvBN(nn.Module):
     """3x3 conv (stride s) + BN + ReLU6."""
 
@@ -136,7 +174,7 @@ class ConvBN(nn.Module):
         self.bn = make_bn(features, ds_bn, sources)
 
     def forward(self, x, source: str = 'DHF1K'):
-        return relu6(apply_bn(self.bn, shard.conv2d(self.conv, x), source))
+        return bn_act(self.bn, shard.conv2d(self.conv, x), source, relu6)
 
 
 class Conv1x1BN(nn.Module):
@@ -150,7 +188,7 @@ class Conv1x1BN(nn.Module):
         self.bn = make_bn(features, ds_bn, sources)
 
     def forward(self, x, source: str = 'DHF1K'):
-        return relu6(apply_bn(self.bn, shard.conv2d(self.conv, x), source))
+        return bn_act(self.bn, shard.conv2d(self.conv, x), source, relu6)
 
 
 class InvertedResidual(nn.Module):
@@ -184,8 +222,7 @@ class InvertedResidual(nn.Module):
     def forward(self, x, source: str = 'DHF1K'):
         h = x
         if self.expand:
-            h = relu6(apply_bn(self.pw_bn, shard.conv2d(self.pw, h), source))
-        h = relu6(apply_bn(self.dw_bn, shard.conv2d(self.dw, h), source))
-        h = apply_bn(self.pw_linear_bn, shard.conv2d(self.pw_linear, h),
-                     source)
-        return x + h if self.use_res_connect else h
+            h = bn_act(self.pw_bn, shard.conv2d(self.pw, h), source, relu6)
+        h = bn_act(self.dw_bn, shard.conv2d(self.dw, h), source, relu6)
+        return bn_act(self.pw_linear_bn, shard.conv2d(self.pw_linear, h),
+                      source, residual=x if self.use_res_connect else None)

@@ -53,7 +53,7 @@ from retargetvid_tpu_torch.models.layers import (
     DEFAULT_SOURCES,
     Conv1x1BN,
     InvertedResidual,
-    apply_bn,
+    bn_act,
     make_bn,
     set_bn_train,
 )
@@ -152,8 +152,8 @@ class _SkipConnection(nn.Module):
                 n, rows = sharded.batch_rows(n)
             x = dropout.dropout(x, self.drop_prob, (n, x.shape[1], 1, 1),
                                 generator, rows)
-        return apply_bn(self.reduction_bn,
-                        shard.conv2d(self.reduction_conv, x), source)
+        return bn_act(self.reduction_bn,
+                      shard.conv2d(self.reduction_conv, x), source)
 
 
 class UNISAL(nn.Module):
