@@ -189,9 +189,8 @@ time, idle share, kernel launches, the postprocess kernel's own device
 time; the per-operator tables go to ``DIR/profile_<phase>.txt``).
 
 Each phase prints one JSON line carrying the card's name and power limit;
-then a line with every kernel's record (with its launches on each path:
-``butter_filtfilt``'s and ``bn_act``'s read wherever the postprocess
-kernel's are),
+then a line with every kernel's record (with its launches on each path,
+counted by ``retargetvid_tpu_torch/kernels/build.py:LAUNCHES``),
 the ``nvidia-smi`` name/power-limit line, and last ``{"ok": true,
 "device": {...}}``.  Without a GPU, or
 without the repository beside it, it exits with an error and prints no
@@ -204,6 +203,7 @@ import statistics
 import subprocess
 import sys
 import time
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -527,6 +527,7 @@ def sm_clock_mhz():
 def phase_filtfilt(card):
     import torch
 
+    from retargetvid_tpu_torch.kernels.build import LAUNCHES
     from retargetvid_tpu_torch.kernels.filtfilt import (
         butter_filtfilt,
         butter_filtfilt_reference,
@@ -536,14 +537,14 @@ def phase_filtfilt(card):
     padlen, sections = _butter_design(*FILTFILT_DESIGN)
     b, L = FILTFILT_SHAPE
     inputs = [filtfilt_inputs(seed, padlen) for seed in range(6)]
-    launches_before = butter_filtfilt.launches
+    launches_before = LAUNCHES['butter_filtfilt']
     n_diff = 0
     for x, n in inputs:
         got = butter_filtfilt(x, n, padlen, sections)
         want = butter_filtfilt_reference(x, n, padlen, sections)
         torch.cuda.synchronize()
         n_diff += int((got.view(torch.int32) != want.view(torch.int32)).sum())
-    if butter_filtfilt.launches != launches_before + len(inputs):
+    if LAUNCHES['butter_filtfilt'] != launches_before + len(inputs):
         fail('filtfilt kernel: not one launch per call')
     if n_diff:
         fail(f'filtfilt kernel: {n_diff} values differ from the plain '
@@ -593,7 +594,7 @@ def phase_filtfilt(card):
            'bound_share': bound_ms / ms_warm,
            'sm_clock_mhz': {'max': top_mhz, 'now': now_mhz},
            'library_ms': None,
-           'launches_in_phase': butter_filtfilt.launches - launches_before}
+           'launches_in_phase': LAUNCHES['butter_filtfilt'] - launches_before}
     emit(card, phase='filtfilt', **rec)
     return rec
 
@@ -719,8 +720,9 @@ def phase_bn_act(card):
         bn_act_reference,
         launch_plan,
     )
+    from retargetvid_tpu_torch.kernels.build import LAUNCHES
     eps = 1e-5
-    launches_before = bn_act.launches
+    launches_before = LAUNCHES['bn_act']
     # Every (C, H, W) and layout the static forward gives the kernel, in
     # each of the three forms, at 96 picks.
     path = bn_act_path_calls()
@@ -728,7 +730,7 @@ def phase_bn_act(card):
         fail(f'bn_act kernel: {len(path)} calls in a static forward, not '
              f'{BN_ACT_PER_CLIP}')
     shapes = sorted({call[:4] for call in path})
-    launches_checked = bn_act.launches
+    launches_checked = LAUNCHES['bn_act']
     worst = {form: {} for form in BN_ACT_FORMS}
     for i, (c, h, w, layout) in enumerate(shapes):
         for form in BN_ACT_FORMS:
@@ -739,7 +741,8 @@ def phase_bn_act(card):
                     worst[form][key] = v
                     if key == 'kernel_vs_plain':
                         worst[form]['at'] = [c, h, w, layout]
-    if bn_act.launches != launches_checked + len(BN_ACT_FORMS) * len(shapes):
+    if (LAUNCHES['bn_act'] - launches_checked
+            != len(BN_ACT_FORMS) * len(shapes)):
         fail('bn_act kernel: not one launch per call')
     torch.cuda.empty_cache()
 
@@ -786,7 +789,7 @@ def phase_bn_act(card):
            'achieved_bytes_per_s': moved / (ms_cold * 1e-3),
            'library_ms': None,
            'batch_norm_alone_ms': bn_alone_ms,
-           'launches_in_phase': bn_act.launches - launches_before}
+           'launches_in_phase': LAUNCHES['bn_act'] - launches_before}
     del inputs
     torch.cuda.empty_cache()
     emit(card, phase='bn_act', **rec)
@@ -861,68 +864,64 @@ class Bench:
             fail('non-finite smoothed centers')
 
 
-#: ``butter_filtfilt`` and ``bn_act`` launches on each path, read where the
-#: postprocess kernel's count is read: their records' ``launches_by_path``.
-FILTFILT_LAUNCHES = {}
-BN_ACT_LAUNCHES = {}
+#: Each kernel's launches on each path (a ``Counter`` by library name per
+#: path): the kernel records' ``launches_by_path``.
+LAUNCHES_BY_PATH = {}
 
 
-def zero_launches():
-    """Set the kernels' launch counts to 0, before a path's run."""
-    from retargetvid_tpu_torch.kernels.bn_act import bn_act
-    from retargetvid_tpu_torch.kernels.filtfilt import butter_filtfilt
-    from retargetvid_tpu_torch.kernels.postprocess import saliency_postprocess
-    saliency_postprocess.launches = 0
-    butter_filtfilt.launches = 0
-    bn_act.launches = 0
+@contextlib.contextmanager
+def launches_of(path=None):
+    """Count the kernels' launches in the block: yields a ``Counter``, with
+    a key for every kernel, filled when the block ends and added to
+    ``path``'s in :data:`LAUNCHES_BY_PATH`."""
+    from retargetvid_tpu_torch.kernels.build import KERNEL_SOURCES, LAUNCHES
+    LAUNCHES.clear()
+    got = Counter()
+    yield got
+    got.update({name: LAUNCHES[name] for name in KERNEL_SOURCES})
+    if path is not None:
+        LAUNCHES_BY_PATH.setdefault(path, Counter()).update(got)
 
 
-def note_launches(path):
-    """Add the filtfilt and bn_act launches since :func:`zero_launches` to
-    ``path``'s counts."""
-    from retargetvid_tpu_torch.kernels.bn_act import bn_act
-    from retargetvid_tpu_torch.kernels.filtfilt import butter_filtfilt
-    FILTFILT_LAUNCHES[path] = (FILTFILT_LAUNCHES.get(path, 0)
-                               + butter_filtfilt.launches)
-    BN_ACT_LAUNCHES[path] = BN_ACT_LAUNCHES.get(path, 0) + bn_act.launches
-
-
-def expect_filtfilt(path, cp, n):
-    """One filtfilt launch per clip on ``path`` where ``cp`` low-passes,
-    none where it does not."""
-    want = n if cp['lp_filt'] else 0
-    got = FILTFILT_LAUNCHES.get(path, 0)
-    if got != want:
-        fail(f'{path}: {got} butter_filtfilt launches for {n} clips '
-             f'(expected {want}: one per clip where lp_filt is on)')
+def expect_launches(path, n_clips, cp, forwards=None, got=None):
+    """Fail unless ``path`` (or the count ``got``) launched each kernel as
+    ``n_clips`` clips of a crop path should: the postprocess kernel once
+    and ``bn_act`` once per BatchNorm in each static UNISAL forward
+    (``forwards``: one a clip on the one-shot paths, one per 32 picks on
+    the streaming ones), the filtfilt kernel once a clip where ``cp``
+    low-passes."""
+    forwards = n_clips if forwards is None else forwards
+    want = {'saliency_postprocess': forwards,
+            'butter_filtfilt': n_clips if cp['lp_filt'] else 0,
+            'bn_act': BN_ACT_PER_CLIP * forwards}
+    got = LAUNCHES_BY_PATH[path] if got is None else got
+    if any(got[name] != n for name, n in want.items()):
+        fail(f'{path}: launches {dict(got)} for {n_clips} clips (expected '
+             f'{want})')
 
 
 def drive(run, warm, clips, path, program=None):
-    """``run`` on the warm-up clip, then on each clip with the kernels'
-    launch counts set to 0 just before and read just after (the filtfilt
-    and bn_act counts noted under ``path``): per-clip ms, outputs, postprocess
-    launches and, with ``program``, its median stage times."""
+    """``run`` on the warm-up clip, then on each clip, the kernels'
+    launches counted under ``path``: per-clip ms, outputs and, with
+    ``program``, its median stage times."""
     import torch
 
-    from retargetvid_tpu_torch.kernels.postprocess import saliency_postprocess
     from retargetvid_tpu_torch.pipeline.oneshot import StageTimer
     run(warm)
     timer = StageTimer()
     if program is not None:
         program.timer = timer
-    zero_launches()
     times, outs = [], []
-    for clip in clips:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        outs.append(run(clip))
-        times.append((time.perf_counter() - t0) * 1e3)
-    launches = saliency_postprocess.launches
-    note_launches(path)
+    with launches_of(path):
+        for clip in clips:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs.append(run(clip))
+            times.append((time.perf_counter() - t0) * 1e3)
     if program is not None:
         program.timer = None
     stages = {k: statistics.median(v) for k, v in timer.times_ms().items()}
-    return times, outs, launches, stages
+    return times, outs, stages
 
 
 def focus_spans(jumps, n, cp, fps):
@@ -954,27 +953,16 @@ def ism_params():
     return cp
 
 
-def expect_launches(path, launches, n):
-    if launches != n:
-        fail(f'{path}: {launches} saliency_postprocess launches for {n} '
-             f'clips (expected one per clip)')
-
-
 def phase_main_path(card, bench, profile_dir=None):
     import torch
 
     from retargetvid_tpu_torch.pipeline.oneshot import OneShotClipProgram
     program = OneShotClipProgram(bench.tn, bench.un, dtype=torch.bfloat16,
                                  tn_fullseq=True)
-    times, outs, launches, stages = drive(
+    times, outs, stages = drive(
         lambda c: program.run(c, bench.cp, **bench.kw), bench.warm,
         bench.clips, 'main_path', program)
-    expect_launches('main path', launches, len(bench.clips))
-    expect_filtfilt('main_path', bench.cp, len(bench.clips))
-    if BN_ACT_LAUNCHES['main_path'] != BN_ACT_PER_CLIP * len(bench.clips):
-        fail(f'main path: {BN_ACT_LAUNCHES["main_path"]} bn_act launches '
-             f'for {len(bench.clips)} clips (expected {BN_ACT_PER_CLIP} '
-             f'per clip, one per BatchNorm of the static forward)')
+    expect_launches('main_path', len(bench.clips), bench.cp)
     rows = stages.get('lowpass_kernel_rows', 0)
     if rows != 2 * program.s_pad:
         fail(f'main path: lowpass_kernel_rows {rows} per clip, expected '
@@ -982,51 +970,53 @@ def phase_main_path(card, bench, profile_dir=None):
     for out in outs:
         bench.check(out)
     med = statistics.median(times)
+    got = LAUNCHES_BY_PATH['main_path']
     emit(card, phase='main_path', clip=[480, bench.h, bench.w],
          dtype='bfloat16', tn_plan='fullseq', per_clip_ms=times,
          median_ms=med, frames_per_s=480 / med * 1e3,
          fc_sel=[o['fc_sel'] for o in outs],
          n_segments=[o['n_segments'] for o in outs],
-         stage_median_ms=stages, postprocess_launches=launches,
-         filtfilt_launches=FILTFILT_LAUNCHES['main_path'],
-         bn_act_launches=BN_ACT_LAUNCHES['main_path'])
+         stage_median_ms=stages,
+         postprocess_launches=got['saliency_postprocess'],
+         filtfilt_launches=got['butter_filtfilt'],
+         bn_act_launches=got['bn_act'])
     if profile_dir is not None:
         profile_clip(card, lambda: program.run(bench.clips[0], bench.cp,
                                                **bench.kw),
                      Path(profile_dir), 'main_path')
-    return program, outs, stages, launches
+    return program, outs, stages
 
 
 def phase_ism(card, bench, profile_dir=None):
-    """The main path under the ISM preset; returns the program and its
-    launches."""
+    """The main path under the ISM preset; returns the program."""
     import torch
 
     from retargetvid_tpu_torch.pipeline.oneshot import OneShotClipProgram
     cp = ism_params()
     program = OneShotClipProgram(bench.tn, bench.un, dtype=torch.bfloat16,
                                  tn_fullseq=True)
-    times, outs, launches, stages = drive(
+    times, outs, stages = drive(
         lambda c: program.run(c, cp, **bench.kw), bench.warm, bench.clips,
         'ism_main_path', program)
-    expect_launches('ISM main path', launches, len(bench.clips))
-    expect_filtfilt('ism_main_path', cp, len(bench.clips))
+    expect_launches('ism_main_path', len(bench.clips), cp)
     for out in outs:
         bench.check(out)
     med = statistics.median(times)
+    got = LAUNCHES_BY_PATH['ism_main_path']
     emit(card, phase='ism_main_path', preset='ISM-2021',
          clip=[480, bench.h, bench.w], dtype='bfloat16', tn_plan='fullseq',
          per_clip_ms=times, median_ms=med, frames_per_s=480 / med * 1e3,
          fc_sel=[o['fc_sel'] for o in outs],
          n_segments=[o['n_segments'] for o in outs],
          **focus_stats(outs, cp, bench.fps), boxes_in_frame_at_dest=True,
-         stage_median_ms=stages, postprocess_launches=launches,
-         filtfilt_launches=FILTFILT_LAUNCHES['ism_main_path'])
+         stage_median_ms=stages,
+         postprocess_launches=got['saliency_postprocess'],
+         filtfilt_launches=got['butter_filtfilt'])
     if profile_dir is not None:
         profile_clip(card, lambda: program.run(bench.clips[0], cp,
                                                **bench.kw),
                      Path(profile_dir), 'ism_main_path')
-    return program, launches
+    return program
 
 
 def phase_windowed(card, bench, main_outs, main_stages):
@@ -1036,11 +1026,10 @@ def phase_windowed(card, bench, main_outs, main_stages):
     program = OneShotClipProgram(bench.tn, bench.un, dtype=torch.bfloat16)
     if program.tn_fullseq:
         fail('the one-shot program does not default to the window plan')
-    times, outs, launches, stages = drive(
+    times, outs, stages = drive(
         lambda c: program.run(c, bench.cp, **bench.kw), bench.warm,
         bench.clips, 'windowed_plan', program)
-    expect_launches('windowed plan', launches, len(bench.clips))
-    expect_filtfilt('windowed_plan', bench.cp, len(bench.clips))
+    expect_launches('windowed_plan', len(bench.clips), bench.cp)
     for out, main in zip(outs, main_outs):
         bench.check(out)
         if (out['fc_sel'], out['n_segments']) != (main['fc_sel'],
@@ -1056,18 +1045,17 @@ def phase_windowed(card, bench, main_outs, main_stages):
          stage_median_ms=stages,
          transnet_stage_windowed_over_fullseq=(stages['transnet']
                                                / main_stages['transnet']),
-         postprocess_launches=launches)
-    return launches
+         postprocess_launches=LAUNCHES_BY_PATH['windowed_plan'][
+             'saliency_postprocess'])
 
 
 def phase_multi_ratio(card, bench, program, cp=None, phase='multi_ratio'):
     """``dispatch_multi`` for both ratios and the two ``run`` calls it
     replaces, in turns on each clip (multi first on even clips, runs first
-    on odd ones); the launch count is set to 0 before each and read after.
-    ``cp`` defaults to the bench's ICIP parameters."""
+    on odd ones), the kernels' launches of each counted.  ``cp`` defaults
+    to the bench's ICIP parameters."""
     import torch
 
-    from retargetvid_tpu_torch.kernels.postprocess import saliency_postprocess
     from retargetvid_tpu_torch.pipeline.oneshot import StageTimer
     cp = cp or bench.cp
     dests = [(d['w_final'], d['h_final']) for d in bench.dests]
@@ -1086,23 +1074,22 @@ def phase_multi_ratio(card, bench, program, cp=None, phase='multi_ratio'):
     timer = StageTimer()
     ms = {'multi': [], 'runs': []}
     outs = {'multi': [], 'runs': []}
-    launches = {'multi': 0, 'runs': 0}
+    two_runs = Counter()
     for i, clip in enumerate(bench.clips):
         order = ('multi', 'runs') if i % 2 == 0 else ('runs', 'multi')
         for name in order:
             program.timer = timer if name == 'multi' else None
             torch.cuda.synchronize()
-            zero_launches()
-            t0 = time.perf_counter()
-            outs[name].append((multi if name == 'multi' else runs)(clip))
-            ms[name].append((time.perf_counter() - t0) * 1e3)
-            launches[name] += saliency_postprocess.launches
-            if name == 'multi':
-                note_launches(phase)
+            with launches_of(phase if name == 'multi' else None) as got:
+                t0 = time.perf_counter()
+                outs[name].append((multi if name == 'multi' else runs)(clip))
+                ms[name].append((time.perf_counter() - t0) * 1e3)
+            if name == 'runs':
+                two_runs.update(got)
     program.timer = None
-    expect_launches(phase, launches['multi'], len(bench.clips))
-    expect_launches(f'{phase}, two runs', launches['runs'],
-                    2 * len(bench.clips))
+    expect_launches(phase, len(bench.clips), cp)
+    expect_launches(f'{phase}, two runs', 2 * len(bench.clips), cp,
+                    got=two_runs)
     same = 0
     for per_ratio, per_run in zip(outs['multi'], outs['runs']):
         for out, single, dest in zip(per_ratio, per_run, bench.dests):
@@ -1121,8 +1108,7 @@ def phase_multi_ratio(card, bench, program, cp=None, phase='multi_ratio'):
          two_runs_per_clip_ms=ms['runs'], two_runs_median_ms=run_med,
          multi_over_two_runs=med / run_med,
          bf16_ratio_boxes_equal_to_run=f'{same} of {2 * len(bench.clips)}',
-         postprocess_launches=launches['multi'])
-    return launches['multi']
+         postprocess_launches=LAUNCHES_BY_PATH[phase]['saliency_postprocess'])
 
 
 def two_dispatch(clip, cp, kw, resize, fused, profile, real=None):
@@ -1170,7 +1156,6 @@ def phase_two_dispatch(card, bench, cp=None, phase='two_dispatch'):
     from retargetvid_tpu_torch.models.transnet import TransNetPredictor
     from retargetvid_tpu_torch.pipeline.fused import FusedClipProgram
     from retargetvid_tpu_torch.pipeline.ingest import _resize_kernel, sal_dims
-    from retargetvid_tpu_torch.kernels.postprocess import saliency_postprocess
     from retargetvid_tpu_torch.pipeline.oneshot import (
         OneShotClipProgram,
         StageTimer,
@@ -1197,18 +1182,16 @@ def phase_two_dispatch(card, bench, cp=None, phase='two_dispatch'):
     two_dispatch(warm, cp, kw, resize, fused, profile, real)
     timer = StageTimer()
     fused.timer = timer
-    zero_launches()
     outs, shots, parts = [], [], []
-    for clip in clips:
-        out, n_seg, ms = two_dispatch(clip, cp, kw, resize, fused,
-                                      profile, real)
-        outs.append(out)
-        shots.append(n_seg)
-        parts.append(ms)
-    launches = saliency_postprocess.launches
-    note_launches(phase)
+    with launches_of(phase):
+        for clip in clips:
+            out, n_seg, ms = two_dispatch(clip, cp, kw, resize, fused,
+                                          profile, real)
+            outs.append(out)
+            shots.append(n_seg)
+            parts.append(ms)
     fused.timer = None
-    expect_launches(phase, launches, len(clips))
+    expect_launches(phase, len(clips), cp)
     if shots != [12] * len(clips):
         fail(f'{phase}: {shots} shots, expected 12 per clip')
     for out in outs:
@@ -1226,8 +1209,8 @@ def phase_two_dispatch(card, bench, cp=None, phase='two_dispatch'):
          per_clip_ms=totals, median_ms=statistics.median(totals),
          part_median_ms={n: statistics.median(v)
                          for n, v in per_part.items()},
-         fused_stage_median_ms=stages, postprocess_launches=launches)
-    return launches
+         fused_stage_median_ms=stages,
+         postprocess_launches=LAUNCHES_BY_PATH[phase]['saliency_postprocess'])
 
 
 def stream_chunks(frames, size=256):
@@ -1254,22 +1237,13 @@ def stream_crop(frames, cp, transnet_fn, saliency_fn, device=None,
     return vd, res, {**ingest, **sc_times()}
 
 
-def expect_chunk_launches(path, launches, picks, chunk=32):
-    want = -(-picks // chunk)
-    if launches != want:
-        fail(f'{path}: {launches} saliency_postprocess launches for {picks} '
-             f'picks (expected {want}, one per chunk of {chunk})')
-
-
 def phase_crop_stream(card, bench, cp=None, phase='crop_stream',
                       profile_dir=None):
     """The streaming path on the bench clips (host uint8 frames in
     256-frame chunks), in turns with the one-shot window-plan program on
-    the same clips; ``cp`` defaults to the bench's ICIP parameters.
-    Returns the streaming path's kernel launches."""
+    the same clips; ``cp`` defaults to the bench's ICIP parameters."""
     import torch
 
-    from retargetvid_tpu_torch.kernels.postprocess import saliency_postprocess
     from retargetvid_tpu_torch.models.transnet import TransNetPredictor
     from retargetvid_tpu_torch.pipeline.oneshot import (
         OneShotClipProgram,
@@ -1296,23 +1270,21 @@ def phase_crop_stream(card, bench, cp=None, phase='crop_stream',
     oneshot(bench.warm)
     program.timer = StageTimer()
     ms = {'stream': [], 'oneshot': []}
-    launches = {'stream': [], 'oneshot': []}
-    stages, picks, series = [], [], []
+    launches, stages, picks, series = [], [], [], []
     for i, (clip, frames) in enumerate(zip(bench.clips, host)):
         order = ('stream', 'oneshot') if i % 2 == 0 else ('oneshot',
                                                           'stream')
+        got = {}
         for name in order:
             torch.cuda.synchronize()
-            zero_launches()
-            t0 = time.perf_counter()
-            if name == 'stream':
-                vd, res, times = stream(frames)
-            else:
-                oneshot(clip)
-            ms[name].append((time.perf_counter() - t0) * 1e3)
-            launches[name].append(saliency_postprocess.launches)
-            if name == 'stream':
-                note_launches(phase)
+            with launches_of(phase if name == 'stream' else None) \
+                    as got[name]:
+                t0 = time.perf_counter()
+                if name == 'stream':
+                    vd, res, times = stream(frames)
+                else:
+                    oneshot(clip)
+                ms[name].append((time.perf_counter() - t0) * 1e3)
         check_boxes(np.asarray(vd['bbs']), bench.dest, bench.h, bench.w)
         if res['result'] != 'smart cropped':
             fail(f'{phase}: result {res["result"]!r}')
@@ -1320,9 +1292,11 @@ def phase_crop_stream(card, bench, cp=None, phase='crop_stream',
         series.append({'jumps': np.asarray(vd['jumps']),
                        'fc_sel': vd['fc_sel']})
         stages.append(times)
-        expect_chunk_launches(phase, launches['stream'][-1], vd['fc_sel'])
-    expect_launches(f'{phase}, one-shot windowed', sum(launches['oneshot']),
-                    len(bench.clips))
+        expect_launches(phase, 1, cp, forwards=-(-vd['fc_sel'] // 32),
+                        got=got['stream'])
+        expect_launches(f'{phase}, one-shot windowed', 1, cp,
+                        got=got['oneshot'])
+        launches.append(got['stream']['saliency_postprocess'])
     one_stages = {k: statistics.median(v)
                   for k, v in program.timer.times_ms().items()}
     med = statistics.median(ms['stream'])
@@ -1336,7 +1310,7 @@ def phase_crop_stream(card, bench, cp=None, phase='crop_stream',
          frames_per_s=480 / med * 1e3,
          stage_median_ms={k: statistics.median(t[k] for t in stages) * 1e3
                           for k in stages[0]},
-         fc_sel=picks, **extra, launches_per_clip=launches['stream'],
+         fc_sel=picks, **extra, launches_per_clip=launches,
          boxes_in_frame_at_dest=True,
          oneshot_windowed_f32_per_clip_ms=ms['oneshot'],
          oneshot_windowed_median_ms=one_med,
@@ -1344,18 +1318,16 @@ def phase_crop_stream(card, bench, cp=None, phase='crop_stream',
          stream_over_oneshot=med / one_med)
     if profile_dir is not None:
         profile_clip(card, lambda: stream(host[0]), Path(profile_dir), phase)
-    return sum(launches['stream'])
 
 
 def phase_cli_crop_pickle(card, bench):
     """``cli crop`` on the 12-shot clip written as a reference ``.pkl``,
-    plain and with ``--best-settings``; returns the kernel launches."""
+    plain and with ``--best-settings``."""
     import pickle
     import tempfile
 
     from retargetvid_tpu_torch import cli
     from retargetvid_tpu_torch.eval.annotations import read_boxes_file
-    from retargetvid_tpu_torch.kernels.postprocess import saliency_postprocess
     from retargetvid_tpu_torch.pipeline.ingest import sample_frames
     frames = make_clip(seed=0, shot_len=40)
     fc = len(frames)
@@ -1364,25 +1336,22 @@ def phase_cli_crop_pickle(card, bench):
     probs[trans_inds] = 1.0
     picks = len(sample_frames(fc, probs, bench.cp['skip'], fc)[1])
     runs = {}
-    total = 0
     with tempfile.TemporaryDirectory() as tmp:
         pkl = Path(tmp) / 'clip.pkl'
         with open(pkl, 'wb') as fp:
             pickle.dump({'fr': bench.fps, 'frame_count': fc, 'w': bench.w,
                          'h': bench.h, 'frames': frames,
                          'trans_inds': trans_inds}, fp)
-        for preset, extra in (('icip', []), ('ism', ['--best-settings'])):
+        for preset, extra, cp in (('icip', [], bench.cp),
+                                  ('ism', ['--best-settings'], ism_params())):
             out = Path(tmp) / f'out_{preset}'
-            zero_launches()
-            t0 = time.perf_counter()
-            cli.main(['crop', str(pkl), '--ratio', '1:3', '--save-vid',
-                      '--out', str(out)] + extra)
-            wall = time.perf_counter() - t0
-            launches = saliency_postprocess.launches
-            note_launches('cli_crop_pickle')
-            total += launches
-            expect_chunk_launches(f'cli_crop_pickle {preset}', launches,
-                                  picks)
+            with launches_of('cli_crop_pickle') as got:
+                t0 = time.perf_counter()
+                cli.main(['crop', str(pkl), '--ratio', '1:3', '--save-vid',
+                          '--out', str(out)] + extra)
+                wall = time.perf_counter() - t0
+            expect_launches(f'cli_crop_pickle {preset}', 1, cp,
+                            forwards=-(-picks // 32), got=got)
             boxes = read_boxes_file(f'{out}.txt')
             check_boxes(boxes, bench.dest, bench.h, bench.w)
             with open(Path(tmp) / 'clip_sc.pkl', 'rb') as fp:
@@ -1392,12 +1361,12 @@ def phase_cli_crop_pickle(card, bench):
             if not np.array_equal(cropped['frames'], want):
                 fail(f'cli_crop_pickle {preset}: clip_sc.pkl does not hold '
                      f'the frames cropped by the boxes')
-            runs[preset] = {'wall_s': wall, 'launches': launches,
+            runs[preset] = {'wall_s': wall,
+                            'launches': got['saliency_postprocess'],
                             'sc_frames': list(cropped['frames'].shape)}
     emit(card, phase='cli_crop_pickle', clip=[fc, bench.h, bench.w],
          shots=len(trans_inds) + 1, picks=picks, runs=runs,
          boxes_in_frame_at_dest=True)
-    return total
 
 
 def numpy_tail(logp: np.ndarray) -> np.ndarray:
@@ -1433,10 +1402,9 @@ def tail_vs_numpy(predictor, clip, smooth):
 
 def phase_predict_video(card, bench, profile_dir=None):
     """Dynamic saliency on the bench clips, without smoothing and with
-    ``med41`` in turns; returns the kernel's launches of each."""
+    ``med41`` in turns."""
     import torch
 
-    from retargetvid_tpu_torch.kernels.postprocess import saliency_postprocess
     from retargetvid_tpu_torch.pipeline.oneshot import StageTimer
     from retargetvid_tpu_torch.pipeline.saliency import SaliencyPredictor
     predictor = SaliencyPredictor(bench.un)            # float32
@@ -1457,15 +1425,14 @@ def phase_predict_video(card, bench, profile_dir=None):
             for mode in order:
                 predictor.timer = StageTimer()
                 torch.cuda.synchronize()
-                zero_launches()
-                chunks[0] = 0
-                t0 = time.perf_counter()
-                maps = predictor.predict_video(clip,
-                                               smooth_method=modes[mode])
-                ms[mode].append((time.perf_counter() - t0) * 1e3)
-                launches[mode].append(saliency_postprocess.launches)
-                note_launches('predict_video' if mode == 'none'
-                              else f'predict_video_{mode}')
+                with launches_of('predict_video' if mode == 'none'
+                                 else f'predict_video_{mode}') as got:
+                    chunks[0] = 0
+                    t0 = time.perf_counter()
+                    maps = predictor.predict_video(clip,
+                                                   smooth_method=modes[mode])
+                    ms[mode].append((time.perf_counter() - t0) * 1e3)
+                launches[mode].append(got['saliency_postprocess'])
                 n_chunks[mode].append(chunks[0])
                 stages[mode].append({k: v[0] for k, v in
                                      predictor.timer.times_ms().items()})
@@ -1508,7 +1475,6 @@ def phase_predict_video(card, bench, profile_dir=None):
     if profile_dir is not None:
         profile_clip(card, lambda: predictor.predict_video(bench.clips[0]),
                      Path(profile_dir), 'predict_video')
-    return sum(launches['none']), sum(launches['med41'])
 
 
 #: ``cli train``'s default batch size with the datasets' default clip and
@@ -1632,14 +1598,11 @@ def inference_targets(frames):
 
 
 def phase_train(card, bench, profile_dir=None):
-    """UNISAL training at full width (see the module docstring, (m));
-    returns the kernel's launches of ``run_inference`` on a dynamic and
-    on a static source."""
+    """UNISAL training at full width (see the module docstring, (m))."""
     import tempfile
 
     import torch
 
-    from retargetvid_tpu_torch.kernels.postprocess import saliency_postprocess
     from retargetvid_tpu_torch.train import trainer as trainer_mod
     from retargetvid_tpu_torch.train.trainer import Trainer
     loaders = {
@@ -1735,15 +1698,14 @@ def phase_train(card, bench, profile_dir=None):
         t0 = time.perf_counter()
         tr.run_inference(frames, source=source)
         ms[f'{label}_maps'] = (time.perf_counter() - t0) * 1e3
-        zero_launches()
-        t0 = time.perf_counter()
-        maps, inf_scores = tr.run_inference(frames, source=source,
-                                            sal=sal[:len(frames)],
-                                            fix=fix[:len(frames)])
-        ms[f'{label}_maps_and_scores'] = (time.perf_counter() - t0) * 1e3
-        launches[label] = saliency_postprocess.launches
-        note_launches('train_run_inference' if label == 'dynamic'
-                      else 'train_run_inference_static')
+        with launches_of('train_run_inference' if label == 'dynamic'
+                         else 'train_run_inference_static') as got:
+            t0 = time.perf_counter()
+            maps, inf_scores = tr.run_inference(frames, source=source,
+                                                sal=sal[:len(frames)],
+                                                fix=fix[:len(frames)])
+            ms[f'{label}_maps_and_scores'] = (time.perf_counter() - t0) * 1e3
+        launches[label] = got['saliency_postprocess']
         want = 1 if label == 'dynamic' else -(-len(frames) // 32)
         if launches[label] != want:
             fail(f'train run_inference {label}: {launches[label]} kernel '
@@ -1782,7 +1744,6 @@ def phase_train(card, bench, profile_dir=None):
          files=files, overfit_batch_stat_loss=[loss0, loss10],
          scores=scores,
          run_inference_ms=ms, run_inference_launches=launches)
-    return launches['dynamic'], launches['static']
 
 
 def draw_stats(model, seed):
@@ -1886,13 +1847,12 @@ def clip_structure(clip, cp, resize, profile):
 
 def in_turns(runs, clips, path=None):
     """Each of ``runs`` (name -> fn(clip)) on each clip, the order flipped
-    every clip, a synchronised host clock around each; the kernel's launches
-    of each run counted from 0 (with ``path``, the ``sharded`` run's
-    filtfilt launches noted under it).  Returns per-run ms lists, outputs
-    and launch totals."""
+    every clip, a synchronised host clock around each; the kernels'
+    launches of each run counted (with ``path``, the ``sharded`` run's under
+    it).  Returns per-run ms lists, outputs and the postprocess kernel's
+    launch totals."""
     import torch
 
-    from retargetvid_tpu_torch.kernels.postprocess import saliency_postprocess
     names = list(runs)
     ms = {n: [] for n in names}
     outs = {n: [] for n in names}
@@ -1900,14 +1860,12 @@ def in_turns(runs, clips, path=None):
     for i, clip in enumerate(clips):
         for name in (names if i % 2 == 0 else names[::-1]):
             torch.cuda.synchronize()
-            zero_launches()
-            t0 = time.perf_counter()
-            outs[name].append(runs[name](clip))
-            torch.cuda.synchronize()
-            ms[name].append((time.perf_counter() - t0) * 1e3)
-            launches[name] += saliency_postprocess.launches
-            if path is not None and name == 'sharded':
-                note_launches(path)
+            with launches_of(path if name == 'sharded' else None) as got:
+                t0 = time.perf_counter()
+                outs[name].append(runs[name](clip))
+                torch.cuda.synchronize()
+                ms[name].append((time.perf_counter() - t0) * 1e3)
+            launches[name] += got['saliency_postprocess']
     return ms, outs, launches
 
 
@@ -1977,13 +1935,11 @@ def sharded_exact(mesh, bench, clip12, sal_frames):
 def two_rank_main(rank, store, out_path, clips, cp, kw):
     """One of two ranks on the one card over gloo: the small clips through
     ``ShardedOneShot`` in both orders, float32 with TF32 off; pickles the
-    outputs and the kernel's launches per run to ``out_path``."""
+    outputs and the kernels' launches per run to ``out_path``."""
     import pickle
 
     import torch
 
-    from retargetvid_tpu_torch.kernels.filtfilt import butter_filtfilt
-    from retargetvid_tpu_torch.kernels.postprocess import saliency_postprocess
     from retargetvid_tpu_torch.parallel import distributed
     from retargetvid_tpu_torch.parallel.mesh import make_mesh
     from retargetvid_tpu_torch.parallel.runner import ShardedOneShot
@@ -1997,11 +1953,9 @@ def two_rank_main(rank, store, out_path, clips, cp, kw):
         res = {'coords': mesh.coords, 'device': str(mesh.device),
                'backend': torch.distributed.get_backend()}
         for name, batch in (('batch', clips), ('swapped', clips[::-1])):
-            zero_launches()
-            res[name] = runner.run_batch(batch, cp, **kw)
-            torch.cuda.synchronize()
-            res[f'{name}_launches'] = saliency_postprocess.launches
-            res[f'{name}_filtfilt_launches'] = butter_filtfilt.launches
+            with launches_of() as res[f'{name}_launches']:
+                res[name] = runner.run_batch(batch, cp, **kw)
+                torch.cuda.synchronize()
     finally:
         distributed.shutdown()
     with open(out_path, 'wb') as fp:
@@ -2051,18 +2005,22 @@ def two_rank_check(clips, cp, kw, tmp: Path):
                         not np.array_equal(got['boxes'], want['boxes']):
                     fail(f'sharded: rank {r}, {name}: clip {i} differs from '
                          f'its world-1 outputs')
-            if res[f'{name}_launches'] != 1:
-                fail(f'sharded: rank {r} launched the kernel '
-                     f'{res[f"{name}_launches"]} times for one batch')
+            n = res[f'{name}_launches']['saliency_postprocess']
+            if n != 1:
+                fail(f'sharded: rank {r} launched the kernel {n} times for '
+                     f'one batch')
+
+    def per_rank_per_batch(kernel):
+        return [[res[f'{name}_launches'][kernel]
+                 for name in ('batch', 'swapped')] for res in ranks]
+
     return {'coords': [res['coords'] for res in ranks],
             'backend': [res['backend'] for res in ranks],
             'devices': [res['device'] for res in ranks],
-            'launches_per_rank_per_batch': [
-                [res['batch_launches'], res['swapped_launches']]
-                for res in ranks],
-            'filtfilt_launches_per_rank_per_batch': [
-                [res['batch_filtfilt_launches'],
-                 res['swapped_filtfilt_launches']] for res in ranks],
+            'launches_per_rank_per_batch': per_rank_per_batch(
+                'saliency_postprocess'),
+            'filtfilt_launches_per_rank_per_batch': per_rank_per_batch(
+                'butter_filtfilt'),
             'fc': [int(c.shape[0]) for c in clips],
             'fc_sel': [o['fc_sel'] for o in world1],
             'n_segments': [o['n_segments'] for o in world1],
@@ -2073,8 +2031,7 @@ def two_rank_check(clips, cp, kw, tmp: Path):
 def phase_sharded(card, bench, program):
     """The sharded runners on a world of 1 over NCCL at full width, in
     turns with their single-device programs, the float32 exactness
-    checks, then the two-rank routing check.  Returns the launches of each
-    path."""
+    checks, then the two-rank routing check."""
     import math
     import shutil
     import tempfile
@@ -2157,8 +2114,8 @@ def phase_sharded(card, bench, program):
                 rec[path]['boxes_max_px_vs_single'] = [
                     max_abs_diff(a['boxes'], b['boxes'])
                     for a, b in zip(outs['sharded'], outs['single'])]
-        expect_launches('sharded_oneshot', launches['oneshot'], 4)
-        expect_launches('sharded_clip_runner', launches['clip_runner'], 4)
+        expect_launches('sharded_oneshot', 4, bench.cp)
+        expect_launches('sharded_clip_runner', 4, bench.cp)
         want = 4 * math.ceil(len(picks) / (mesh.shape['dp']
                                            * sal_runner.per_chip))
         if launches['saliency'] != want:
@@ -2180,13 +2137,9 @@ def phase_sharded(card, bench, program):
          saliency_per_chip=sal_runner.per_chip, runs=rec,
          exact_float32=exact, two_rank_gloo=two, launches=launches,
          seconds=time.perf_counter() - t_phase)
-    FILTFILT_LAUNCHES['sharded_two_rank_per_rank'] = sum(
-        two['filtfilt_launches_per_rank_per_batch'][0])
-    return {'sharded_oneshot': launches['oneshot'],
-            'sharded_clip_runner': launches['clip_runner'],
-            'sharded_saliency': launches['saliency'],
-            'sharded_two_rank_per_rank': sum(
-                two['launches_per_rank_per_batch'][0])}
+    LAUNCHES_BY_PATH['sharded_two_rank_per_rank'] = Counter(
+        saliency_postprocess=sum(two['launches_per_rank_per_batch'][0]),
+        butter_filtfilt=sum(two['filtfilt_launches_per_rank_per_batch'][0]))
 
 
 #: The meshes of two ranks sharing the card in the ``train_mesh`` phase.
@@ -2345,9 +2298,7 @@ def gloo_ranks_record(ranks, meshes, single, single_peak, what):
 
 
 def phase_train_mesh(card, bench):
-    """Mesh training at full width (see the module docstring, (o));
-    returns the kernel's launches of ``run_inference`` on the 1-rank mesh
-    trainer."""
+    """Mesh training at full width (see the module docstring, (o))."""
     import pickle
     import shutil
     import tempfile
@@ -2355,7 +2306,6 @@ def phase_train_mesh(card, bench):
     import torch
 
     from retargetvid_tpu_torch.dryrun import dryrun_multichip
-    from retargetvid_tpu_torch.kernels.postprocess import saliency_postprocess
     from retargetvid_tpu_torch.parallel import distributed
     from retargetvid_tpu_torch.parallel.mesh import make_mesh
     from retargetvid_tpu_torch.parallel.shard import split_rows
@@ -2406,11 +2356,10 @@ def phase_train_mesh(card, bench):
                 ms[k].append(mesh_step(tr, batch, seed=i)[1])
         ms = {k: v[1:] for k, v in ms.items()}            # warm-up out
         clip = bench.clips[0]
-        zero_launches()
-        maps, _ = trainers['mesh'].run_inference(clip, source='DHF1K')
-        torch.cuda.synchronize()
-        launches = saliency_postprocess.launches
-        note_launches('train_mesh_run_inference')
+        with launches_of('train_mesh_run_inference') as got:
+            maps, _ = trainers['mesh'].run_inference(clip, source='DHF1K')
+            torch.cuda.synchronize()
+        launches = got['saliency_postprocess']
         if launches != 1 or maps.shape != tuple(clip.shape[:3]):
             fail(f'train_mesh run_inference: {launches} launches, maps '
                  f'{maps.shape}')
@@ -2465,7 +2414,6 @@ def phase_train_mesh(card, bench):
                     'rtol': MESH_RTOL},
          dryrun_multichip_4=dry, run_inference_launches=launches,
          seconds=time.perf_counter() - t_phase)
-    return launches
 
 
 #: The bench modes of the ``bench`` phase: ``run_bench`` arguments and the
@@ -2490,13 +2438,12 @@ def phase_bench(card, bench):
     :data:`BENCH_MODES` on the bench models and clips (seeds 0..3 and the
     warm-up seed 100 shared with the other phases), then ``python -m
     retargetvid_tpu_torch.bench`` once as a subprocess.  Returns the
-    records and the launches of each mode."""
+    records of each mode."""
     import os
 
     import torch
 
     from retargetvid_tpu_torch.bench import run_bench
-    from retargetvid_tpu_torch.kernels.postprocess import saliency_postprocess
     from retargetvid_tpu_torch.pipeline.oneshot import OneShotClipProgram
     t_phase = time.perf_counter()
     cache = {100: bench.warm, **dict(enumerate(bench.clips))}
@@ -2509,14 +2456,12 @@ def phase_bench(card, bench):
     records, launches, outputs = {}, {}, {}
     for name, (kw, want) in BENCH_MODES.items():
         torch.cuda.synchronize()
-        zero_launches()
-        result, outs = run_bench(bench.tn, bench.un, clip_fn=clip_fn, **kw)
-        torch.cuda.synchronize()
-        launches[name] = saliency_postprocess.launches
-        note_launches(name)
-        if launches[name] != want:
-            fail(f'{name}: {launches[name]} saliency_postprocess launches, '
-                 f'expected {want} (one per clip)')
+        with launches_of(name) as got:
+            result, outs = run_bench(bench.tn, bench.un, clip_fn=clip_fn,
+                                     **kw)
+            torch.cuda.synchronize()
+        launches[name] = got['saliency_postprocess']
+        expect_launches(name, want, bench.cp)
         for entry in outs['per_clip'] + outs['pipelined']:
             for r, out in enumerate(bench_outputs(entry)):
                 dest = bench.dests[r] if kw.get('multi_ratio') else None
@@ -2571,7 +2516,7 @@ def phase_bench(card, bench):
     emit(card, phase='bench', clip=[480, bench.h, bench.w], iters=4,
          dtype='bfloat16 (TransNet and the UNISAL input)', modes=records,
          launches=launches, seconds=time.perf_counter() - t_phase)
-    return records, launches
+    return records
 
 
 def phase_mfu(card, bench, bench_records):
@@ -2923,7 +2868,7 @@ def phase_exact(card):
     import torch
 
     from retargetvid_tpu_torch.config import sc_init_crop_params
-    from retargetvid_tpu_torch.kernels.postprocess import saliency_postprocess
+    from retargetvid_tpu_torch.kernels.build import LAUNCHES
     from retargetvid_tpu_torch.models.transnet import TransNetPredictor
     from retargetvid_tpu_torch.ops.boxes import calc_dest_size
     from retargetvid_tpu_torch.pipeline.ingest import _resize_kernel, sal_dims
@@ -2944,14 +2889,14 @@ def phase_exact(card):
     n_box_diff, fc_sel, n_segments = {}, {}, {}
     for name, cp in presets.items():
         # Kernel vs plain postprocess on the main path.
-        before = saliency_postprocess.launches
+        before = LAUNCHES['saliency_postprocess']
         with_kernel = fullseq.run(clip, cp, **kw)
-        if saliency_postprocess.launches != before + 1:
+        if LAUNCHES['saliency_postprocess'] != before + 1:
             fail(f'{name}: the float32 run did not launch the kernel '
                  f'exactly once')
         with plain_postprocess():
             with_plain = fullseq.run(clip, cp, **kw)
-        if saliency_postprocess.launches != before + 1:
+        if LAUNCHES['saliency_postprocess'] != before + 1:
             fail(f'{name}: the plain run launched the kernel')
         n_box_diff[name] = int((with_kernel['boxes'] != with_plain['boxes'])
                                .any(1).sum())
@@ -2962,11 +2907,11 @@ def phase_exact(card):
         n_segments[name] = with_kernel['n_segments']
 
         # dispatch_multi vs each ratio's run.
-        before = saliency_postprocess.launches
+        before = LAUNCHES['saliency_postprocess']
         multi = fullseq.collect_multi(fullseq.dispatch_multi(
             clip, cp, fps=30.0,
             dests=[(d['w_final'], d['h_final']) for d in dests]))
-        if saliency_postprocess.launches != before + 1:
+        if LAUNCHES['saliency_postprocess'] != before + 1:
             fail(f'{name}: dispatch_multi did not launch the kernel '
                  f'exactly once')
         for out, dest in zip(multi, dests):
@@ -3045,46 +2990,34 @@ def main():
     filtfilt_record = phase_filtfilt(card)
     bn_act_record = phase_bn_act(card)
     bench = Bench()
-    program, main_outs, main_stages, launches = phase_main_path(
-        card, bench, args.profile)
-    record['launches'] = launches
-    record['launches_by_path'] = {
-        'main_path': launches,
-        'windowed_plan': phase_windowed(card, bench, main_outs,
-                                        main_stages),
-        'multi_ratio': phase_multi_ratio(card, bench, program),
-        'two_dispatch': phase_two_dispatch(card, bench),
-    }
-    ism_program, record['launches_by_path']['ism_main_path'] = phase_ism(
-        card, bench, args.profile)
-    record['launches_by_path']['ism_multi_ratio'] = phase_multi_ratio(
-        card, bench, ism_program, ism_params(), 'ism_multi_ratio')
-    record['launches_by_path']['ism_two_dispatch'] = phase_two_dispatch(
-        card, bench, ism_params(), 'ism_two_dispatch')
-    record['launches_by_path']['crop_stream'] = phase_crop_stream(
-        card, bench, profile_dir=args.profile)
-    record['launches_by_path']['ism_crop_stream'] = phase_crop_stream(
-        card, bench, ism_params(), 'ism_crop_stream', args.profile)
-    record['launches_by_path']['cli_crop_pickle'] = phase_cli_crop_pickle(
-        card, bench)
-    (record['launches_by_path']['predict_video'],
-     record['launches_by_path']['predict_video_med41']) = \
-        phase_predict_video(card, bench, args.profile)
-    (record['launches_by_path']['train_run_inference'],
-     record['launches_by_path']['train_run_inference_static']) = \
-        phase_train(card, bench, args.profile)
-    record['launches_by_path'].update(phase_sharded(card, bench, program))
-    record['launches_by_path']['train_mesh_run_inference'] = \
-        phase_train_mesh(card, bench)
+    program, main_outs, main_stages = phase_main_path(card, bench,
+                                                      args.profile)
+    phase_windowed(card, bench, main_outs, main_stages)
+    phase_multi_ratio(card, bench, program)
+    phase_two_dispatch(card, bench)
+    ism_program = phase_ism(card, bench, args.profile)
+    phase_multi_ratio(card, bench, ism_program, ism_params(),
+                      'ism_multi_ratio')
+    phase_two_dispatch(card, bench, ism_params(), 'ism_two_dispatch')
+    phase_crop_stream(card, bench, profile_dir=args.profile)
+    phase_crop_stream(card, bench, ism_params(), 'ism_crop_stream',
+                      args.profile)
+    phase_cli_crop_pickle(card, bench)
+    phase_predict_video(card, bench, args.profile)
+    phase_train(card, bench, args.profile)
+    phase_sharded(card, bench, program)
+    phase_train_mesh(card, bench)
     with exact_float32():
         phase_exact(card)
-    bench_records, bench_launches = phase_bench(card, bench)
-    record['launches_by_path'].update(bench_launches)
+    bench_records = phase_bench(card, bench)
     phase_mfu(card, bench, bench_records)
     if 'jax' in sys.modules:
         fail('jax was imported')
-    filtfilt_record['launches_by_path'] = FILTFILT_LAUNCHES
-    bn_act_record['launches_by_path'] = BN_ACT_LAUNCHES
+    record['launches'] = LAUNCHES_BY_PATH['main_path']['saliency_postprocess']
+    for rec in (record, filtfilt_record, bn_act_record):
+        rec['launches_by_path'] = {path: got[rec['name']] for path, got
+                                   in LAUNCHES_BY_PATH.items()
+                                   if rec['name'] in got}
     print(json.dumps({'kernels': [record, filtfilt_record, bn_act_record]}))
     print(card)
     print(json.dumps({'ok': True, 'device': {

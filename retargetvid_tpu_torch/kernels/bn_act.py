@@ -25,7 +25,7 @@ from typing import NamedTuple, Optional
 import torch
 from torch.nn import functional as F
 
-from retargetvid_tpu_torch.kernels.build import check_launch, load_library
+from retargetvid_tpu_torch.kernels.build import launch
 from retargetvid_tpu_torch.utils import timing
 
 __all__ = ["bn_act", "bn_act_reference", "launch_plan", "layout_of",
@@ -115,10 +115,6 @@ _SIGNATURES = {
 }
 
 
-def _library() -> ctypes.CDLL:
-    return load_library('bn_act', _SIGNATURES)
-
-
 def _check(x, mean, var, gamma, beta, residual) -> str:
     """Raise for what the kernel does not take; returns x's layout."""
     tensors = {'x': x, 'running_mean': mean, 'running_var': var,
@@ -162,16 +158,11 @@ def _launch(x, mean, var, gamma, beta, eps, relu6, residual, layout):
         ptrs.append(residual.data_ptr())
     plan = launch_plan(tuple(x.shape), layout,
                        aligned=all(p % 16 == 0 for p in ptrs))
-    lib = _library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.rtv_bn_act(
-            x.data_ptr(), None if residual is None else residual.data_ptr(),
-            out.data_ptr(), mean.data_ptr(), var.data_ptr(), gamma.data_ptr(),
-            beta.data_ptr(), float(eps), x.numel(), x.shape[1], plan.inner,
-            plan.mode, int(relu6), plan.ctas, stream)
-    check_launch(lib, 'bn_act', rc)
-    bn_act.launches += 1
+    launch('bn_act', _SIGNATURES, 'rtv_bn_act', x.device,
+           x.data_ptr(), None if residual is None else residual.data_ptr(),
+           out.data_ptr(), mean.data_ptr(), var.data_ptr(), gamma.data_ptr(),
+           beta.data_ptr(), float(eps), x.numel(), x.shape[1], plan.inner,
+           plan.mode, int(relu6), plan.ctas)
     timing.count('bn_act')
     return out
 
@@ -184,9 +175,9 @@ def bn_act(x: torch.Tensor, mean, var, gamma, beta, eps: float,
     normalised tensor, ReLU6'd where ``relu6``, plus ``residual`` where
     given, in ``x``'s layout.
 
-    CUDA tensor: the CUDA kernel (counted in ``bn_act.launches`` and the
-    active recorder's ``bn_act``).  CPU tensor: the plain version.  Nothing
-    else, on either: the arguments are checked first.
+    CUDA tensor: the CUDA kernel (counted in the active recorder's
+    ``bn_act``).  CPU tensor: the plain version.  Nothing else, on either:
+    the arguments are checked first.
     """
     layout = _check(x, mean, var, gamma, beta, residual)
     if x.device.type == 'cuda':
@@ -196,7 +187,3 @@ def bn_act(x: torch.Tensor, mean, var, gamma, beta, eps: float,
         return bn_act_reference(x, mean, var, gamma, beta, eps, relu6,
                                 residual)
     raise ValueError(f'bn_act: unsupported device {x.device}')
-
-
-#: Kernel launches since the count was last set to 0.
-bn_act.launches = 0

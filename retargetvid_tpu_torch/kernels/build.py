@@ -12,6 +12,9 @@ missing one, as ``build_all`` does, one ``nvcc`` per source started at
 once, so a fresh checkout waits for one compile, not one per kernel.  A
 missing ``nvcc`` or a failed build raises: nothing falls
 back to the plain PyTorch versions.
+
+Every kernel is launched through :func:`launch`, on the current stream of
+its tensors' device, and counted in :data:`LAUNCHES`.
 """
 
 from __future__ import annotations
@@ -22,10 +25,13 @@ import os
 import shutil
 import subprocess
 import tempfile
+from collections import Counter
 from pathlib import Path
 
-__all__ = ["KERNEL_SOURCES", "BUILD_DIR", "build_all", "load_library",
-           "check_launch", "nvcc_command"]
+import torch
+
+__all__ = ["KERNEL_SOURCES", "BUILD_DIR", "LAUNCHES", "build_all",
+           "load_library", "launch", "check_launch", "nvcc_command"]
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / 'build' / 'kernels'
@@ -35,6 +41,10 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 KERNEL_SOURCES = {'saliency_postprocess': 'saliency_postprocess.cu',
                   'butter_filtfilt': 'butter_filtfilt.cu',
                   'bn_act': 'bn_act.cu'}
+
+#: Launches of each kernel, by library name, in this process since the
+#: count was last cleared.
+LAUNCHES: Counter = Counter()
 
 _LOADED: dict = {}
 
@@ -121,3 +131,16 @@ def check_launch(lib: ctypes.CDLL, name: str, rc: int) -> None:
     if rc != 0:
         msg = lib.rtv_cuda_error_string(rc).decode()
         raise RuntimeError(f'{name} launch failed: CUDA error {rc} ({msg})')
+
+
+def launch(name: str, signatures, fn_name: str, device, *args) -> None:
+    """Launch kernel ``name``: its library's ``fn_name`` (typed by
+    ``signatures``, see :func:`load_library`) called with ``args`` and the
+    current stream of CUDA ``device``, on that device.  Raises on a CUDA
+    error; counts the launch in :data:`LAUNCHES`."""
+    lib = load_library(name, signatures)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib, fn_name)(*args, stream)
+    check_launch(lib, name, rc)
+    LAUNCHES[name] += 1

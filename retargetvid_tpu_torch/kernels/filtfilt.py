@@ -20,7 +20,7 @@ from typing import NamedTuple
 
 import torch
 
-from retargetvid_tpu_torch.kernels.build import check_launch, load_library
+from retargetvid_tpu_torch.kernels.build import launch
 from retargetvid_tpu_torch.utils import timing
 
 __all__ = ["butter_filtfilt", "butter_filtfilt_reference", "pack_design",
@@ -158,10 +158,6 @@ _SIGNATURES = {
 }
 
 
-def _library() -> ctypes.CDLL:
-    return load_library('butter_filtfilt', _SIGNATURES)
-
-
 def _launch(x: torch.Tensor, n: torch.Tensor, padlen: int,
             sections) -> torch.Tensor:
     if x.dtype != torch.float32:
@@ -188,15 +184,10 @@ def _launch(x: torch.Tensor, n: torch.Tensor, padlen: int,
     scratch = (None if plan.shared else
                torch.empty(b * plan.row_floats, dtype=torch.float32,
                            device=x.device))
-    lib = _library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.rtv_butter_filtfilt(
-            x.data_ptr(), n64.data_ptr(), out.data_ptr(),
-            None if scratch is None else scratch.data_ptr(), b, l,
-            plan.rows, ctypes.byref(design), stream)
-    check_launch(lib, 'butter_filtfilt', rc)
-    butter_filtfilt.launches += 1
+    launch('butter_filtfilt', _SIGNATURES, 'rtv_butter_filtfilt', x.device,
+           x.data_ptr(), n64.data_ptr(), out.data_ptr(),
+           None if scratch is None else scratch.data_ptr(), b, l, plan.rows,
+           ctypes.byref(design))
     timing.count('lowpass_kernel_rows', b)
     return out
 
@@ -205,15 +196,11 @@ def butter_filtfilt(x: torch.Tensor, n: torch.Tensor, padlen: int,
                     sections) -> torch.Tensor:
     """(B, L) float32 series, (B,) live lengths -> (B, L) filtfilt output.
 
-    CUDA tensor: the CUDA kernel (counted in ``butter_filtfilt.launches``).
-    CPU tensor: the plain version.  Nothing else.
+    CUDA tensor: the CUDA kernel.  CPU tensor: the plain version.  Nothing
+    else.
     """
     if x.device.type == 'cuda':
         return _launch(x, n, padlen, sections)
     if x.device.type == 'cpu':
         return butter_filtfilt_reference(x, n, padlen, sections)
     raise ValueError(f'butter_filtfilt: unsupported device {x.device}')
-
-
-#: Kernel launches since the count was last set to 0.
-butter_filtfilt.launches = 0

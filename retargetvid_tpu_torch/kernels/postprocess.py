@@ -18,7 +18,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from retargetvid_tpu_torch.kernels.build import check_launch, load_library
+from retargetvid_tpu_torch.kernels.build import launch
 
 __all__ = ["saliency_postprocess", "saliency_postprocess_reference",
            "launch_plan", "LaunchPlan"]
@@ -95,10 +95,6 @@ _SIGNATURES = {
 }
 
 
-def _library() -> ctypes.CDLL:
-    return load_library('saliency_postprocess', _SIGNATURES)
-
-
 def _launch(logp: torch.Tensor) -> torch.Tensor:
     if logp.dtype != torch.float32:
         raise TypeError(f'saliency_postprocess takes float32, got '
@@ -111,24 +107,19 @@ def _launch(logp: torch.Tensor) -> torch.Tensor:
     t, h, w = logp.shape
     plan = launch_plan(t, h * w)
     out = torch.empty((t, h, w), dtype=torch.uint8, device=logp.device)
-    lib = _library()
     # float4 loads need a 16-byte aligned input (a view may start anywhere).
     vec = plan.vec and logp.data_ptr() % 16 == 0
-    with torch.cuda.device(logp.device):
-        stream = torch.cuda.current_stream(logp.device).cuda_stream
-        rc = lib.rtv_saliency_postprocess(
-            logp.data_ptr(), out.data_ptr(), t, h * w, plan.cluster,
-            plan.slice, int(vec), stream)
-    check_launch(lib, 'saliency_postprocess', rc)
-    saliency_postprocess.launches += 1
+    launch('saliency_postprocess', _SIGNATURES, 'rtv_saliency_postprocess',
+           logp.device, logp.data_ptr(), out.data_ptr(), t, h * w,
+           plan.cluster, plan.slice, int(vec))
     return out
 
 
 def saliency_postprocess(logp: torch.Tensor) -> torch.Tensor:
     """(T, H, W) float32 log-probabilities -> (T, H, W) uint8 maps.
 
-    CUDA tensor: the CUDA kernel (counted in ``saliency_postprocess.
-    launches``).  CPU tensor: the plain version.  Nothing else.
+    CUDA tensor: the CUDA kernel.  CPU tensor: the plain version.  Nothing
+    else.
     """
     if logp.device.type == 'cuda':
         return _launch(logp)
@@ -136,7 +127,3 @@ def saliency_postprocess(logp: torch.Tensor) -> torch.Tensor:
         return saliency_postprocess_reference(logp)
     raise ValueError(f'saliency_postprocess: unsupported device '
                      f'{logp.device}')
-
-
-#: Kernel launches since the count was last set to 0.
-saliency_postprocess.launches = 0

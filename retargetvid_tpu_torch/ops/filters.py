@@ -34,7 +34,7 @@ import numpy as np
 import torch
 from torch.nn import functional as F
 
-from retargetvid_tpu_torch.kernels.filtfilt import _gather, butter_filtfilt
+from retargetvid_tpu_torch.kernels.filtfilt import butter_filtfilt
 from retargetvid_tpu_torch.utils import timing
 
 __all__ = ["butter_lowpass_filter", "savgol_smooth", "loess_smooth",
@@ -148,17 +148,16 @@ def savgol_smooth(x: torch.Tensor, n: torch.Tensor, window: torch.Tensor,
            * coeffs[:, None, :]).sum(dim=2)
     # Edges: polynomial fits over the first and the last window.
     k = torch.arange(wmax, device=dev)[None, :]
-    head_vals = torch.einsum('bhw,bw->bh', head,
-                             _gather(x, torch.clamp(k, max=L - 1).expand(
-                                 b, -1)))
-    tail_vals = torch.einsum('bhw,bw->bh', tail, _gather(
-        x, torch.clamp(nn_ - win + k, 0, L - 1)))
+    head_vals = torch.einsum('bhw,bw->bh', head, torch.gather(
+        x, 1, torch.clamp(k, max=L - 1).expand(b, -1)))
+    tail_vals = torch.einsum('bhw,bw->bh', tail, torch.gather(
+        x, 1, torch.clamp(nn_ - win + k, 0, L - 1)))
     half = torch.div(win, 2, rounding_mode='floor')
-    out = torch.where(pos < half, _gather(
-        head_vals, torch.clamp(pos, max=hmax - 1).expand(b, -1)), mid)
+    out = torch.where(pos < half, torch.gather(
+        head_vals, 1, torch.clamp(pos, max=hmax - 1).expand(b, -1)), mid)
     tpos = pos - (nn_ - half)
-    out = torch.where((tpos >= 0) & live, _gather(
-        tail_vals, torch.clamp(tpos, 0, hmax - 1)), out)
+    out = torch.where((tpos >= 0) & live, torch.gather(
+        tail_vals, 1, torch.clamp(tpos, 0, hmax - 1)), out)
     return torch.where(live & in_bank, out, x)
 
 

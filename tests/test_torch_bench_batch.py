@@ -95,13 +95,13 @@ def test_batch_mode_on_the_card():
         pytest.skip('needs a CUDA GPU (run on the card: python -m pytest '
                     'tests/test_torch_bench_batch.py -m cuda --noconftest)')
     from retargetvid_tpu_torch.bench import build_models, make_clip, run_bench
-    from retargetvid_tpu_torch.kernels.postprocess import saliency_postprocess
+    from retargetvid_tpu_torch.kernels.build import LAUNCHES
     from retargetvid_tpu_torch.pipeline.oneshot import OneShotClipProgram
 
     tn, un = build_models()
-    saliency_postprocess.launches = 0
+    LAUNCHES.clear()
     result, outs = run_bench(tn, un, iters=1, batch=2)
-    assert saliency_postprocess.launches == 4       # warm-up batch + 1
+    assert LAUNCHES['saliency_postprocess'] == 4    # warm-up batch + 1
     assert result['per_clip_fps'] > 0
     assert result['device'] == torch.cuda.get_device_name(0) or \
         result['device'].startswith(torch.cuda.get_device_name(0))

@@ -281,16 +281,17 @@ def _bound(x, stats, res):
 
 def _kernel_vs_plain(shape, layout, form, device, seed):
     from retargetvid_tpu_torch.kernels.bn_act import bn_act, bn_act_reference
+    from retargetvid_tpu_torch.kernels.build import LAUNCHES
 
     relu6, with_res = FORMS[form]
     x = _input(shape, layout, seed, device)
     res = _input(shape, layout, seed + 1, device) if with_res else None
     stats = _stats(shape[1], seed + 2, device)
-    launches = bn_act.launches
+    launches = LAUNCHES['bn_act']
     got = bn_act(x, *stats, EPS, relu6=relu6, residual=res)
     want = bn_act_reference(x, *stats, EPS, relu6=relu6, residual=res)
     torch.cuda.synchronize()
-    assert bn_act.launches == launches + 1
+    assert LAUNCHES['bn_act'] == launches + 1
     assert got.stride() == x.stride()
     err = (got.double() - want.double()).abs()
     assert bool((err <= REL_TOL * _bound(x, stats, res)).all()), \
@@ -320,7 +321,7 @@ def test_kernel_keeps_nan_and_fails_loudly(cuda_device):
     view takes single floats; a launch the C side refuses raises with its
     error."""
     from retargetvid_tpu_torch.kernels import bn_act as kernel
-    from retargetvid_tpu_torch.kernels.build import check_launch
+    from retargetvid_tpu_torch.kernels.build import LAUNCHES, launch
 
     stats = _stats(8, 30, cuda_device)
     x = _input((2, 8, 4, 6), 'nhwc', 31, cuda_device)
@@ -335,14 +336,14 @@ def test_kernel_keeps_nan_and_fails_loudly(cuda_device):
     assert torch.allclose(kernel.bn_act(view, *stats, EPS),
                           kernel.bn_act_reference(view, *stats, EPS),
                           rtol=1e-5, atol=1e-5)
-    lib = kernel._library()
     out = torch.empty_like(x)
-    rc = lib.rtv_bn_act(
-        x.data_ptr(), None, out.data_ptr(), *(s.data_ptr() for s in stats),
-        EPS, x.numel(), 8, 1, kernel.NCHW_VEC, 1, 1,
-        torch.cuda.current_stream().cuda_stream)
+    launches = LAUNCHES['bn_act']
     with pytest.raises(RuntimeError, match='CUDA error'):
-        check_launch(lib, 'bn_act', rc)
+        launch('bn_act', kernel._SIGNATURES, 'rtv_bn_act', x.device,
+               x.data_ptr(), None, out.data_ptr(),
+               *(s.data_ptr() for s in stats), EPS, x.numel(), 8, 1,
+               kernel.NCHW_VEC, 1, 1)
+    assert LAUNCHES['bn_act'] == launches
 
 
 def _random_stats_(model, seed):
@@ -368,7 +369,7 @@ def test_static_forward_kernel_vs_plain(cuda_device, monkeypatch):
     float32 with TF32 off: log-probabilities within 1e-4 (some 1e-5 of
     their size)."""
     from retargetvid_tpu_torch import bench
-    from retargetvid_tpu_torch.kernels import bn_act as kernel
+    from retargetvid_tpu_torch.kernels.build import LAUNCHES
 
     _, un = bench.build_models()
     un = _random_stats_(un.to(cuda_device).float(), seed=40)
@@ -378,12 +379,12 @@ def test_static_forward_kernel_vs_plain(cuda_device, monkeypatch):
     torch.backends.cudnn.allow_tf32 = False
     try:
         with torch.inference_mode():
-            launches = kernel.bn_act.launches
+            launches = LAUNCHES['bn_act']
             got = un(x, target_size=(140, 250), source='SALICON')
-            assert kernel.bn_act.launches == launches + 64
+            assert LAUNCHES['bn_act'] == launches + 64
             _separate_ops(monkeypatch)
             want = un(x, target_size=(140, 250), source='SALICON')
-            assert kernel.bn_act.launches == launches + 64
+            assert LAUNCHES['bn_act'] == launches + 64
     finally:
         torch.backends.cudnn.allow_tf32 = saved
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
@@ -396,7 +397,7 @@ def test_64_launches_per_dispatch(cuda_device):
     gradients on launches none."""
     from retargetvid_tpu_torch import bench
     from retargetvid_tpu_torch.config import sc_init_crop_params
-    from retargetvid_tpu_torch.kernels.bn_act import bn_act
+    from retargetvid_tpu_torch.kernels.build import LAUNCHES
     from retargetvid_tpu_torch.ops.boxes import calc_dest_size
     from retargetvid_tpu_torch.pipeline.oneshot import (
         OneShotClipProgram,
@@ -413,14 +414,14 @@ def test_64_launches_per_dispatch(cuda_device):
     program.timer = StageTimer()
     for seed in (0, 1):
         clip = torch.from_numpy(bench.make_clip(seed=seed)).to(cuda_device)
-        launches = bn_act.launches
+        launches = LAUNCHES['bn_act']
         program.collect(program.dispatch(
             clip, cp, fps=30.0, w_final=dest['w_final'],
             h_final=dest['h_final']))
-        assert bn_act.launches == launches + 64
+        assert LAUNCHES['bn_act'] == launches + 64
     assert program.timer.counts()['bn_act'] == [64, 64]
-    launches = bn_act.launches
+    launches = LAUNCHES['bn_act']
     with torch.enable_grad():
         un(torch.rand((2, 1, 256, 416, 3), device=cuda_device),
            source='SALICON')
-    assert bn_act.launches == launches
+    assert LAUNCHES['bn_act'] == launches

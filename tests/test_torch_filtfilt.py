@@ -106,7 +106,7 @@ def test_cpu_path_is_the_plain_version(name, monkeypatch):
     """On the CPU ``butter_lowpass_filter`` never loads the library and is
     bit-equal to the benchmark's frozen copy of the op chain."""
     from portbench.reference.filters import butter_lowpass_filter as frozen
-    from retargetvid_tpu_torch.kernels import build, filtfilt
+    from retargetvid_tpu_torch.kernels import build
     from retargetvid_tpu_torch.ops.filters import (
         _butter_design,
         butter_lowpass_filter,
@@ -115,9 +115,9 @@ def test_cpu_path_is_the_plain_version(name, monkeypatch):
     def refuse(*args, **kwargs):
         raise AssertionError('the CPU path loaded a kernel library')
 
-    monkeypatch.setattr(filtfilt, 'load_library', refuse)
+    monkeypatch.setattr(build, 'load_library', refuse)
     monkeypatch.setattr(build, 'build_all', refuse)
-    launches = filtfilt.butter_filtfilt.launches
+    launches = build.LAUNCHES['butter_filtfilt']
     padlen, _ = _butter_design(*DESIGNS[name])
     for b, L in SHAPES[:2]:
         for rot in range(5 if b < 5 else 1):
@@ -125,7 +125,7 @@ def test_cpu_path_is_the_plain_version(name, monkeypatch):
             n = torch.from_numpy(_lengths(b, L, padlen, rot))
             out = butter_lowpass_filter(x, n, *DESIGNS[name])
             assert torch.equal(out, frozen(x, n, *DESIGNS[name]))
-    assert filtfilt.butter_filtfilt.launches == launches
+    assert build.LAUNCHES['butter_filtfilt'] == launches
 
 
 def test_unsupported_device():
@@ -147,6 +147,7 @@ def test_kernel_bit_equal(cuda_device, name, shape, monkeypatch):
     bit-equal to the plain version on the card, at live lengths 1, padlen,
     padlen + 1, L - 1 and L on every row."""
     from retargetvid_tpu_torch.kernels import filtfilt
+    from retargetvid_tpu_torch.kernels.build import LAUNCHES
     from retargetvid_tpu_torch.ops import filters
 
     b, L = shape
@@ -154,9 +155,9 @@ def test_kernel_bit_equal(cuda_device, name, shape, monkeypatch):
     for rot in range(5 if b < 5 else 1):
         x = torch.from_numpy(_series(b, L, seed=10 + rot)).to(cuda_device)
         n = torch.from_numpy(_lengths(b, L, padlen, rot)).to(cuda_device)
-        launches = filtfilt.butter_filtfilt.launches
+        launches = LAUNCHES['butter_filtfilt']
         got = filtfilt.butter_filtfilt(x, n, padlen, sections)
-        assert filtfilt.butter_filtfilt.launches == launches + 1
+        assert LAUNCHES['butter_filtfilt'] == launches + 1
         want = filtfilt.butter_filtfilt_reference(x, n, padlen, sections)
         torch.cuda.synchronize()
         assert torch.equal(got, want), (
@@ -197,13 +198,13 @@ def test_kernel_refuses_and_fails_loudly(cuda_device):
     import ctypes
 
     from retargetvid_tpu_torch.kernels import filtfilt
-    from retargetvid_tpu_torch.kernels.build import check_launch
+    from retargetvid_tpu_torch.kernels.build import LAUNCHES, launch
     from retargetvid_tpu_torch.ops.filters import _butter_design
 
     padlen, sections = _butter_design(*DESIGNS['icip'])
     x = torch.from_numpy(_series(16, 512, seed=3)).to(cuda_device)
     n = torch.full((16,), 512, dtype=torch.int64, device=cuda_device)
-    launches = filtfilt.butter_filtfilt.launches
+    launches = LAUNCHES['butter_filtfilt']
     with pytest.raises(ValueError, match='contiguous'):
         filtfilt.butter_filtfilt(x[:, ::2], n, padlen, sections)
     with pytest.raises(TypeError, match='float32'):
@@ -212,16 +213,15 @@ def test_kernel_refuses_and_fails_loudly(cuda_device):
         2.0, 30.0, 2 * filtfilt.MAX_SECTIONS + 1)
     with pytest.raises(ValueError, match='second-order sections'):
         filtfilt.butter_filtfilt(x, n, long_padlen, long_sections)
-    assert filtfilt.butter_filtfilt.launches == launches
-    # 0 rows per block: the launcher refuses, the wrapper's check raises.
-    lib = filtfilt._library()
+    assert LAUNCHES['butter_filtfilt'] == launches
+    # 0 rows per block: the launcher refuses, the launch raises.
     out = torch.empty_like(x)
     design = filtfilt.pack_design(padlen, sections)
-    rc = lib.rtv_butter_filtfilt(
-        x.data_ptr(), n.data_ptr(), out.data_ptr(), None, 16, 512, 0,
-        ctypes.byref(design), torch.cuda.current_stream().cuda_stream)
     with pytest.raises(RuntimeError, match='CUDA error'):
-        check_launch(lib, 'butter_filtfilt', rc)
+        launch('butter_filtfilt', filtfilt._SIGNATURES, 'rtv_butter_filtfilt',
+               x.device, x.data_ptr(), n.data_ptr(), out.data_ptr(), None,
+               16, 512, 0, ctypes.byref(design))
+    assert LAUNCHES['butter_filtfilt'] == launches
 
 
 @pytest.mark.cuda
@@ -231,7 +231,7 @@ def test_one_launch_per_dispatch(cuda_device):
     (the counter ``lowpass_kernel_rows``)."""
     from retargetvid_tpu_torch import bench
     from retargetvid_tpu_torch.config import sc_init_crop_params
-    from retargetvid_tpu_torch.kernels.filtfilt import butter_filtfilt
+    from retargetvid_tpu_torch.kernels.build import LAUNCHES
     from retargetvid_tpu_torch.ops.boxes import calc_dest_size
     from retargetvid_tpu_torch.pipeline.oneshot import (
         OneShotClipProgram,
@@ -248,11 +248,11 @@ def test_one_launch_per_dispatch(cuda_device):
     program.timer = StageTimer()
     for seed in (0, 1):
         clip = torch.from_numpy(bench.make_clip(seed=seed)).to(cuda_device)
-        launches = butter_filtfilt.launches
+        launches = LAUNCHES['butter_filtfilt']
         out = program.collect(program.dispatch(
             clip, cp, fps=30.0, w_final=dest['w_final'],
             h_final=dest['h_final']))
-        assert butter_filtfilt.launches == launches + 1
+        assert LAUNCHES['butter_filtfilt'] == launches + 1
         assert out['boxes'].shape[0] == clip.shape[0]
     assert program.timer.counts()['lowpass_kernel_rows'] == \
         [2 * program.s_pad] * 2

@@ -43,7 +43,7 @@ def test_port_imports_no_jax(tmp_path):
         assert f'retargetvid_tpu_torch.{name}' in mods, name
     code = ('import importlib, sys\n'
             f'for m in {mods!r}: importlib.import_module(m)\n'
-            'import chip_smoke, kernel_turns\n'
+            'import chip_smoke\n'
             # ``cli predict`` on a missing file runs until the reader finds
             # no frames, so it has imported all it uses.
             'from retargetvid_tpu_torch.cli import main\n'
@@ -233,8 +233,8 @@ def test_saliency_predictor_kernel_on_the_card(monkeypatch):
                     'tests/test_torch_import.py -m cuda --noconftest)')
     import numpy as np
 
+    from retargetvid_tpu_torch.kernels.build import LAUNCHES
     from retargetvid_tpu_torch.kernels.postprocess import (
-        saliency_postprocess,
         saliency_postprocess_reference,
     )
     from retargetvid_tpu_torch.models.init import seeded_init_
@@ -246,12 +246,12 @@ def test_saliency_predictor_kernel_on_the_card(monkeypatch):
     frames = np.random.default_rng(0).integers(
         0, 255, (81, 140, 250, 3)).astype(np.uint8)
     predictor = saliency.SaliencyPredictor(seeded_init_(UNISAL(), 1))
-    saliency_postprocess.launches = 0
+    LAUNCHES.clear()
     maps = predictor.predict(frames)
-    assert saliency_postprocess.launches == 3
+    assert LAUNCHES['saliency_postprocess'] == 3
     monkeypatch.setattr(saliency, 'saliency_postprocess',
                         saliency_postprocess_reference)
     plain = predictor.predict(frames)
-    assert saliency_postprocess.launches == 3
+    assert LAUNCHES['saliency_postprocess'] == 3
     assert maps.shape == (81, 140, 250) and maps.dtype == np.uint8
     assert np.array_equal(maps, plain)

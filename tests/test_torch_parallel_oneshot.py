@@ -41,7 +41,7 @@ def _clip(rng, fc, h, w, phase):
 
 
 def _rank_batches(rank, tn, un, raws, cp, kw):
-    from retargetvid_tpu_torch.kernels.postprocess import saliency_postprocess
+    from retargetvid_tpu_torch.kernels.build import LAUNCHES
     from retargetvid_tpu_torch.parallel.mesh import make_mesh
     from retargetvid_tpu_torch.parallel.runner import ShardedOneShot
 
@@ -52,7 +52,7 @@ def _rank_batches(rank, tn, un, raws, cp, kw):
     with torch.no_grad():
         runner.tn_model.dense2.bias.copy_(torch.tensor([-5.0, 5.0]))
     out['cut'] = runner.run_batch(raws, cp, **kw)
-    out['launches'] = saliency_postprocess.launches
+    out['launches'] = LAUNCHES['saliency_postprocess']
     return out
 
 

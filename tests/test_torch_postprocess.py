@@ -114,6 +114,7 @@ CUDA_SHAPES = [(96, 140, 250), (32, 140, 250), (1, 140, 250), (3, 37, 53),
 @pytest.mark.parametrize('shape', CUDA_SHAPES,
                          ids=['x'.join(map(str, s)) for s in CUDA_SHAPES])
 def test_cuda_kernel_matches_plain(cuda_device, shape):
+    from retargetvid_tpu_torch.kernels.build import LAUNCHES
     from retargetvid_tpu_torch.kernels.postprocess import (
         saliency_postprocess,
         saliency_postprocess_reference,
@@ -136,10 +137,10 @@ def test_cuda_kernel_matches_plain(cuda_device, shape):
                                     .astype(np.float32)).to(cuda_device)
                    for s, o in ((20, 0), (1, -87), (3, -95), (30, 60))]
     for xi in inputs:
-        before = saliency_postprocess.launches
+        before = LAUNCHES['saliency_postprocess']
         out = saliency_postprocess(xi)
         torch.cuda.synchronize()
-        assert saliency_postprocess.launches == before + 1
+        assert LAUNCHES['saliency_postprocess'] == before + 1
         ref = saliency_postprocess_reference(xi)
         diff = _report(f'CUDA kernel vs plain {shape}', out.cpu().numpy(),
                        ref.cpu().numpy())

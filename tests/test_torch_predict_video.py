@@ -168,8 +168,8 @@ def test_predict_video_kernel_tail_on_the_card(monkeypatch):
         pytest.skip('needs a CUDA GPU (run on the card: python -m pytest '
                     'tests/test_torch_predict_video.py -m cuda '
                     '--noconftest)')
+    from retargetvid_tpu_torch.kernels.build import LAUNCHES
     from retargetvid_tpu_torch.kernels.postprocess import (
-        saliency_postprocess,
         saliency_postprocess_reference,
     )
     from retargetvid_tpu_torch.models.init import seeded_init_
@@ -182,14 +182,14 @@ def test_predict_video_kernel_tail_on_the_card(monkeypatch):
     sal = saliency.SaliencyPredictor(seeded_init_(UNISAL(**tiny), 1))
     frames = clip(t=37, h=90, w=160)
     for smooth in (None, 'med41'):
-        saliency_postprocess.launches = 0
+        LAUNCHES.clear()
         maps = sal.predict_video(frames, smooth_method=smooth)
-        assert saliency_postprocess.launches == 1
+        assert LAUNCHES['saliency_postprocess'] == 1
         with monkeypatch.context() as m:
             m.setattr(saliency, 'saliency_postprocess',
                       saliency_postprocess_reference)
             plain = sal.predict_video(frames, smooth_method=smooth)
-        assert saliency_postprocess.launches == 1
+        assert LAUNCHES['saliency_postprocess'] == 1
         assert maps.shape == (37, 90, 160) and np.array_equal(maps, plain)
 
 

@@ -176,17 +176,17 @@ def test_train_steps_card_vs_cpu(monkeypatch):
 @pytest.mark.cuda
 def test_run_inference_launches_on_the_card():
     _card()
-    from retargetvid_tpu_torch.kernels.postprocess import saliency_postprocess
+    from retargetvid_tpu_torch.kernels.build import LAUNCHES
     from retargetvid_tpu_torch.train.trainer import Trainer
 
     tr = Trainer(model_cfg=TINY, device='cuda')
     tr.init_state(rng_seed=3)
     for source, t, want in (('DHF1K', 9, 1), ('SALICON', 70, 3)):
         frames, sal, fix = clip(t=t)
-        saliency_postprocess.launches = 0
+        LAUNCHES.clear()
         maps, scores = tr.run_inference(frames, source=source,
                                         frame_modulo=3, seq_len=2, sal=sal,
                                         fix=fix)
-        assert saliency_postprocess.launches == want, source
+        assert LAUNCHES['saliency_postprocess'] == want, source
         assert maps.shape == frames.shape[:3] and maps.dtype == np.uint8
         assert all(np.isfinite(v) for v in scores.values())
