@@ -48,6 +48,18 @@ and fails (exit code != 0) if any phase fails:
       timer, ``ms_call``, the plain version's device time, cuDNN's eval
       BatchNorm alone (one pass over the same bytes), and the bytes bound
       at 3.35 TB/s; the main path must launch it 64 times a clip;
+  (b4) smoothing-tail kernel: ``kernels/smooth.py:saliency_smooth`` at the
+      static forward's (96, 1, 32, 52) -> 256x416, 8 factors of 41 taps
+      (the bench UNISAL's factors of both sources, and random ones), and at
+      a ConvGRU chunk's (6, 1, 32, 52), within float32 FMA's worst case of
+      the formula in float64 (k (1 + r) / 2 units of 2^-23 of the terms'
+      magnitudes); ``ms_device`` (100 inputs in turn, past the L2) and
+      ``ms_device_warm`` from the CUDA-graph timer, ``ms_call``, the plain
+      version's time a call (nearest resize, replicate pad, two convs; its
+      host uploads keep it out of a CUDA graph),
+      cuDNN's two convolutions alone on the padded map (TF32 as the card
+      defaults) as the yardstick, and the float32 FMA bound at 67 TFLOP/s;
+      one launch per static forward, per ConvGRU chunk, none in training;
   (c) main path: ``OneShotClipProgram.run`` with the full-sequence
       TransNet plan on the synthetic 480x360x640 clip of ``bench.py``
       (30 fps, 1:3 ratio), full-width TransNetV1 and UNISAL with seeded
@@ -796,6 +808,140 @@ def phase_bn_act(card):
     return rec
 
 
+#: The static forward's smoothing tail on the bench clip: 96 picks of the
+#: 32x52 adaptation map to the 256x416 network input, 8 factors of 41 taps.
+SMOOTH_SHAPE = (96, 1, 32, 52)
+SMOOTH_OUT = (256, 416)
+#: ``predict_video``'s ConvGRU chunk: 6 frames of the same map.
+SMOOTH_CHUNK = (6, 1, 32, 52)
+
+
+def smooth_check(shape, kv, kh, seed):
+    """The kernel against the formula in float64 on seeded maps: the worst
+    error over the terms' magnitudes, and over float32 FMA's worst case
+    (k (1 + r) / 2 units of 2^-23 of them), which it must not pass."""
+    import torch
+
+    from retargetvid_tpu_torch.kernels.smooth import (
+        saliency_smooth,
+        smooth_reference,
+    )
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+    x = torch.randn(shape, generator=gen, device='cuda') * 2.0
+    got = saliency_smooth(x, kv, kh, SMOOTH_OUT).double()
+    x64, kv64, kh64 = x.double(), kv.double(), kh.double()
+    exact = smooth_reference(x64, kv64, kh64, SMOOTH_OUT)
+    size = smooth_reference(x64.abs(), kv64.abs(), kh64.abs(), SMOOTH_OUT)
+    r, k = kv.shape[0], kv.shape[2]
+    bound = k * (1 + r) / 2 * 2.0 ** -23
+    rel = float(((got - exact).abs() / size.clamp(min=1e-300)).max())
+    if rel > bound:
+        fail(f'saliency_smooth kernel {shape}: {rel} of the terms\' '
+             f'magnitudes from float64 (limit {bound})')
+    return {'rel_to_terms': rel, 'of_bound': rel / bound}
+
+
+def phase_smooth(card):
+    import torch
+    from torch.nn import functional as F
+
+    from retargetvid_tpu_torch import bench
+    from retargetvid_tpu_torch.kernels.build import LAUNCHES
+    from retargetvid_tpu_torch.kernels.smooth import flops as smooth_flops
+    from retargetvid_tpu_torch.kernels.smooth import (
+        launch_plan,
+        saliency_smooth,
+        smooth_reference,
+    )
+    from retargetvid_tpu_torch.ops.resize import resize
+    launches_before = LAUNCHES['saliency_smooth']
+    un = bench.build_models()[1]
+    factors = {src: (getattr(un, f'smoothing_v_{src}').detach().cuda(),
+                     getattr(un, f'smoothing_h_{src}').detach().cuda())
+               for src in ('dhf1k', 'salicon')}
+    del un
+    gen = torch.Generator(device='cuda').manual_seed(7)
+    factors['random'] = (torch.randn((8, 1, 41, 1), generator=gen,
+                                     device='cuda'),
+                         torch.randn((1, 8, 1, 41), generator=gen,
+                                     device='cuda'))
+    worst = {f'{name} {list(shape)}':
+             smooth_check(shape, kv, kh, seed=10 + i)
+             for i, (name, (kv, kh)) in enumerate(factors.items())
+             for shape in (SMOOTH_SHAPE, SMOOTH_CHUNK)}
+    if LAUNCHES['saliency_smooth'] - launches_before != len(worst):
+        fail('saliency_smooth kernel: not one launch per call')
+
+    kv, kh = factors['salicon']
+    inputs = [torch.randn(SMOOTH_SHAPE, generator=gen, device='cuda')
+              for _ in range(100)]                  # 64 MB, past the L2
+    pad = kv.shape[2] // 2
+
+    def kernel(x):
+        return saliency_smooth(x, kv, kh, SMOOTH_OUT)
+
+    def plain(x):
+        return smooth_reference(x, kv, kh, SMOOTH_OUT)
+
+    padded = [F.pad(resize(x, SMOOTH_OUT, 'nearest', channels_last=False),
+                    (pad,) * 4, mode='replicate') for x in inputs[:2]]
+
+    def cudnn_convs(xp):
+        return F.conv2d(F.conv2d(xp, kv), kh)
+
+    ms_cold = device_ms(kernel, inputs, n=100, reps=5)
+    ms_warm = device_ms(kernel, inputs[:1], n=60, reps=5)
+    ms_call = call_ms(lambda: kernel(inputs[0]))
+    # The plain version uploads the nearest resize's index tables from the
+    # host on every call, which a CUDA graph cannot capture: timed a call.
+    plain_ms = call_ms(lambda: plain(inputs[0]), n=10)
+    library_ms = device_ms(cudnn_convs, padded, n=10, reps=3)
+    n, _, h, w = SMOOTH_SHAPE
+    r, k = kv.shape[0], kv.shape[2]
+    flops = smooth_flops(n, SMOOTH_OUT, r, k)
+    bound_ms = flops / H100_FP32_FLOPS * 1e3
+    # The function's own FMAs: a vertical sum depends on its column only
+    # through the source column the nearest resize reads there, so it is
+    # needed once per distinct source column (the kernel, as the
+    # convolution, forms it at every padded column).
+    out_h, out_w = SMOOTH_OUT
+    src_cols = {min(int(min(max(x - k // 2, 0), out_w - 1) * (w / out_w)),
+                    w - 1) for x in range(out_w + k - 1)}
+    flops_distinct = 2 * n * r * out_h * k * (len(src_cols) + out_w)
+    bound_distinct_ms = flops_distinct / H100_FP32_FLOPS * 1e3
+    rec = {'name': 'saliency_smooth', 'route': 'cuda',
+           'source': 'retargetvid_tpu_torch/csrc/saliency_smooth.cu',
+           'replaces': 'none (the JAX package leaves the tail to XLA); the '
+                       'port\'s nearest resize, replicate pad and two '
+                       'convolutions, kernels/smooth.py:smooth_reference',
+           'shape': [list(SMOOTH_SHAPE), list(SMOOTH_OUT)], 'r': r, 'k': k,
+           'plan': launch_plan(n, h, w, *SMOOTH_OUT, r, k)._asdict(),
+           'worst_vs_float64': worst,
+           'ms_device': ms_cold, 'ms_device_warm': ms_warm,
+           'ms_call': ms_call, 'plain_ms': plain_ms,
+           'plain_timed': 'a call (call_ms): its host uploads keep it out '
+                          'of a CUDA graph',
+           'bound_ms': bound_ms,
+           'bound_by': f'float32 FMA: {flops} FLOP (vertical at the padded '
+                       f'columns, horizontal) at 67 TFLOP/s',
+           'bound_share': bound_ms / ms_cold,
+           'achieved_flop_per_s': flops / (ms_cold * 1e-3),
+           'bound_distinct_ms': bound_distinct_ms,
+           'bound_distinct_by': f'float32 FMA: {flops_distinct} FLOP '
+                                f'(vertical at the {len(src_cols)} distinct '
+                                f'source columns, horizontal) at 67 TFLOP/s',
+           'bound_distinct_share': bound_distinct_ms / ms_cold,
+           'library_ms': library_ms,
+           'library': 'cuDNN F.conv2d vertical then horizontal on the '
+                      'padded map, TF32 as the card defaults',
+           'launches_in_phase': LAUNCHES['saliency_smooth']
+           - launches_before}
+    del inputs, padded
+    torch.cuda.empty_cache()
+    emit(card, phase='saliency_smooth', **rec)
+    return rec
+
+
 def build_models(seed=0):
     """The bench's seeded full-width models, TransNet's head biased as
     bench.py does (random weights fire a "cut" on every frame), so sampling
@@ -886,14 +1032,15 @@ def launches_of(path=None):
 def expect_launches(path, n_clips, cp, forwards=None, got=None):
     """Fail unless ``path`` (or the count ``got``) launched each kernel as
     ``n_clips`` clips of a crop path should: the postprocess kernel once
-    and ``bn_act`` once per BatchNorm in each static UNISAL forward
-    (``forwards``: one a clip on the one-shot paths, one per 32 picks on
-    the streaming ones), the filtfilt kernel once a clip where ``cp``
-    low-passes."""
+    and ``bn_act`` once per BatchNorm and ``saliency_smooth`` once in each
+    static UNISAL forward (``forwards``: one a clip on the one-shot paths,
+    one per 32 picks on the streaming ones), the filtfilt kernel once a
+    clip where ``cp`` low-passes."""
     forwards = n_clips if forwards is None else forwards
     want = {'saliency_postprocess': forwards,
             'butter_filtfilt': n_clips if cp['lp_filt'] else 0,
-            'bn_act': BN_ACT_PER_CLIP * forwards}
+            'bn_act': BN_ACT_PER_CLIP * forwards,
+            'saliency_smooth': forwards}
     got = LAUNCHES_BY_PATH[path] if got is None else got
     if any(got[name] != n for name, n in want.items()):
         fail(f'{path}: launches {dict(got)} for {n_clips} clips (expected '
@@ -1434,6 +1581,9 @@ def phase_predict_video(card, bench, profile_dir=None):
                     ms[mode].append((time.perf_counter() - t0) * 1e3)
                 launches[mode].append(got['saliency_postprocess'])
                 n_chunks[mode].append(chunks[0])
+                if got['saliency_smooth'] != chunks[0]:
+                    fail(f'predict_video {mode}: {got["saliency_smooth"]} '
+                         f'smoothing launches for {chunks[0]} chunks')
                 stages[mode].append({k: v[0] for k, v in
                                      predictor.timer.times_ms().items()})
                 if maps.shape != (n_frames, bench.h, bench.w) or not (
@@ -1665,11 +1815,14 @@ def phase_train(card, bench, profile_dir=None):
     loss0 = batch_stat_loss(ov.model, *batch)
     before = bn_stats(ov.model)
     step = ov.step_fn('DHF1K', False, True)
-    for i in range(10):
-        ov.state, _ = step(ov.state, *batch)
-        if i == 0:
-            check_stats_moved(moved_stats(before, ov.model), ('dhf1k',),
-                              'one DHF1K step')
+    with launches_of('train_steps') as got:
+        for i in range(10):
+            ov.state, _ = step(ov.state, *batch)
+            if i == 0:
+                check_stats_moved(moved_stats(before, ov.model),
+                                  ('dhf1k',), 'one DHF1K step')
+    if got['bn_act'] or got['saliency_smooth']:
+        fail(f'train: the train steps launched {dict(got)}')
     loss10 = batch_stat_loss(ov.model, *batch)
     if not loss10 < loss0:
         fail(f'train: 10 steps on one batch did not lower its loss '
@@ -2989,6 +3142,7 @@ def main():
     record = phase_kernel(card)
     filtfilt_record = phase_filtfilt(card)
     bn_act_record = phase_bn_act(card)
+    smooth_record = phase_smooth(card)
     bench = Bench()
     program, main_outs, main_stages = phase_main_path(card, bench,
                                                       args.profile)
@@ -3014,11 +3168,12 @@ def main():
     if 'jax' in sys.modules:
         fail('jax was imported')
     record['launches'] = LAUNCHES_BY_PATH['main_path']['saliency_postprocess']
-    for rec in (record, filtfilt_record, bn_act_record):
+    records = [record, filtfilt_record, bn_act_record, smooth_record]
+    for rec in records:
         rec['launches_by_path'] = {path: got[rec['name']] for path, got
                                    in LAUNCHES_BY_PATH.items()
                                    if rec['name'] in got}
-    print(json.dumps({'kernels': [record, filtfilt_record, bn_act_record]}))
+    print(json.dumps({'kernels': records}))
     print(card)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

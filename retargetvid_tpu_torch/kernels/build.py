@@ -40,7 +40,8 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 #: Every kernel source of the port, by library name.
 KERNEL_SOURCES = {'saliency_postprocess': 'saliency_postprocess.cu',
                   'butter_filtfilt': 'butter_filtfilt.cu',
-                  'bn_act': 'bn_act.cu'}
+                  'bn_act': 'bn_act.cu',
+                  'saliency_smooth': 'saliency_smooth.cu'}
 
 #: Launches of each kernel, by library name, in this process since the
 #: count was last cleared.

@@ -8,7 +8,9 @@ two-stage decoder with skip concatenations, a per-source 1x1 adaptation
 conv, nearest resize to the input size, an edge-padded Gaussian smoothing
 conv (its stored rank-r factors as two 1-D convs, or with
 ``smoothing_rank=None`` the full k x k kernel), a bilinear resize to the
-target size and a spatial log-softmax.
+target size and a spatial log-softmax.  Under inference on a CUDA device
+the nearest resize, the pad and the factored smoothing are one launch of
+``kernels/smooth.py`` (see :func:`smoothing_on_kernel`).
 
 Training knobs (``retargetvid_tpu/models/unisal.py:163-183``):
 ``drop_probs`` (the skip connections' dropout, live with
@@ -47,6 +49,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from retargetvid_tpu_torch.kernels import smooth
 from retargetvid_tpu_torch.models import dropout
 from retargetvid_tpu_torch.models.convgru import ConvGRU
 from retargetvid_tpu_torch.models.layers import (
@@ -63,7 +66,7 @@ from retargetvid_tpu_torch.parallel import shard
 
 __all__ = ["UNISAL", "manual_gaussian_init", "gaussian_prior_maps",
            "spatial_log_softmax", "smoothing_kernel_init",
-           "factorize_smoothing_kernel"]
+           "factorize_smoothing_kernel", "smoothing_on_kernel"]
 
 
 def manual_gaussian_init() -> np.ndarray:
@@ -118,6 +121,19 @@ def factorize_smoothing_kernel(kernel2d: np.ndarray, rank: int):
     kh = vt[:r, :].reshape(1, r, 1, k).astype(np.float32)
     trunc = float(s[r] / s[0]) if r < k else 0.0
     return kv, kh, trunc
+
+
+def smoothing_on_kernel(x: torch.Tensor, smoothing_rank) -> bool:
+    """Whether the smoothing tail of the adaptation map ``x`` runs as the
+    CUDA kernel ``kernels/smooth.py``: on a CUDA tensor with no gradient
+    being recorded (the programs run under ``inference_mode``), outside
+    mesh training, for a model with factored smoothing (``smoothing_rank``
+    set).  The kernel's wrapper raises on a map or factors it does not
+    take.  Otherwise the separate ops: training (the factors' gradients),
+    mesh training (the pad reaches across the row shards), the full k x k
+    kernel, the CPU."""
+    return (x.is_cuda and not torch.is_grad_enabled()
+            and shard.current() is None and bool(smoothing_rank))
 
 
 def spatial_log_softmax(x: torch.Tensor) -> torch.Tensor:
@@ -354,19 +370,25 @@ class UNISAL(nn.Module):
         up = shard.conv2d(getattr(self, 'adaptation' + self._suffix(
             self.ds_adaptation, source)), up)
 
-        # Nearest resize to the input size, edge pad, smoothing.
-        up = self._resize(up, (h, w), 'nearest').to(dtype)
-        pad = self.smoothing_ksize // 2
-        if sharded is None:
-            up = F.pad(up, (pad, pad, pad, pad), mode='replicate')
-        else:
-            up = sharded.replicate_pad(up, pad)
+        # Nearest resize to the input size, edge pad, smoothing: one
+        # kernel launch where ``smoothing_on_kernel``, else the ops.
         ssuf = self._suffix(self.ds_smoothing, source)
-        if self.smoothing_rank:
-            up = F.conv2d(up, getattr(self, f'smoothing_v{ssuf}'))
-            up = F.conv2d(up, getattr(self, f'smoothing_h{ssuf}'))
+        kv = getattr(self, f'smoothing_v{ssuf}', None)   # None: k x k
+        kh = getattr(self, f'smoothing_h{ssuf}', None)
+        if smoothing_on_kernel(up, self.smoothing_rank):
+            up = smooth.saliency_smooth(up.contiguous(), kv, kh, (h, w))
         else:
-            up = F.conv2d(up, getattr(self, f'smoothing{ssuf}'))
+            up = self._resize(up, (h, w), 'nearest').to(dtype)
+            pad = self.smoothing_ksize // 2
+            if sharded is None:
+                up = F.pad(up, (pad, pad, pad, pad), mode='replicate')
+            else:
+                up = sharded.replicate_pad(up, pad)
+            if self.smoothing_rank:
+                up = F.conv2d(up, kv)
+                up = F.conv2d(up, kh)
+            else:
+                up = F.conv2d(up, getattr(self, f'smoothing{ssuf}'))
 
         up = self._resize(up, target_size, 'linear')
         if sharded is not None and sharded.split:
